@@ -1,14 +1,14 @@
-"""genomics_rs_tpu — a TPU-native computational-genomics framework.
+"""genomics_rs_tpu — an accelerator computational-genomics framework.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of the
+A from-scratch JAX/XLA rebuild of the capabilities of the
 ``genomics-rs`` reference (pairwise global/local alignment with affine
-gaps, suffix trees + BWT, all-pairs genome comparison), designed
-TPU-first:
+gaps, suffix trees + BWT, all-pairs genome comparison):
 
 * the Gotoh three-matrix DP fill is expressed over anti-diagonal
-  wavefronts (``lax.scan`` oracle + a Pallas VPU kernel),
-* traceback is reconstructed host-side from compact 2-bit direction
-  codes (the reference materialises 48 B/cell — we store 2 bits),
+  wavefronts (``lax.scan``, compiled by XLA),
+* traceback is reconstructed from compact direction codes (the
+  reference materialises 48 B/cell — we store one byte, or 2 bits
+  packed),
 * batches of sequence pairs are ``vmap``-ed and sharded over a
   ``jax.sharding.Mesh`` with ``shard_map``; stats merge with XLA
   collectives,

@@ -8,7 +8,7 @@ Subcommand parity with the reference CLI
   compare     --alphabet-file FILE --fasta-dir DIR --suffix-links --threads N
 
 plus the global ``--config-path`` (default ``config.toml``) and
-TPU-specific extensions (``--engine``, ``--devices``). ``is_local`` is
+extensions (``--engine``, more subcommands). ``is_local`` is
 true iff the flag is exactly "local" or "1" (``main.rs:142``).
 
 Deviations (documented): the BWT output directory is created if
@@ -24,6 +24,8 @@ import logging
 import os
 import sys
 
+from genomics_rs_tpu.ops.engine import ENGINE_CHOICES
+
 BANNER = r"""
         GENOMICS-RS-TPU
         -. .-.   .-. .-.   .-. .-.   .
@@ -36,7 +38,7 @@ BANNER = r"""
 def _build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="genomics-rs-tpu",
-        description="TPU-native FASTA alignment (Smith-Waterman / Needleman-Wunsch), "
+        description="Accelerated FASTA alignment (Smith-Waterman / Needleman-Wunsch), "
         "suffix trees + BWT, and all-pairs genome comparison",
     )
     p.add_argument("-c", "--config-path", default="config.toml")
@@ -45,7 +47,7 @@ def _build_parser() -> argparse.ArgumentParser:
     a = sub.add_parser("align", help="pairwise alignment of two FASTA sequences")
     a.add_argument("-a", "--alignment-type", default="local")
     a.add_argument("-f", "--fasta-path", required=True)
-    a.add_argument("--engine", default="auto", choices=["auto", "scan", "pallas"])
+    a.add_argument("--engine", default="auto", choices=ENGINE_CHOICES)
     a.add_argument(
         "--matrix",
         default=None,
@@ -54,12 +56,11 @@ def _build_parser() -> argparse.ArgumentParser:
         "come from the config's g/h",
     )
     a.add_argument(
-        "--band",
-        type=int,
-        default=0,
-        help="global-only: restrict the fill to a diagonal band this "
-        "many columns wide (exact when the optimal path stays in "
-        "band — similar pairs; chromosome-scale in seconds)",
+        "-o",
+        "--output",
+        default=None,
+        help="also write the alignment as a 2-sequence gapped FASTA "
+        "(local mode: the aligned region, its span in the headers)",
     )
 
     s = sub.add_parser("suffixtree", help="suffix tree stats + BWT")
@@ -77,25 +78,13 @@ def _build_parser() -> argparse.ArgumentParser:
     rd = sub.add_parser(
         "reads",
         help="batch-score read pairs: query[i] vs ref[i] from two "
-        "FASTA/FASTQ files, auto-detected (TPU extension: row-scan "
-        "inter-sequence kernel)",
+        "FASTA/FASTQ files, auto-detected (extension: batched device "
+        "fills)",
     )
     rd.add_argument("-q", "--queries", required=True)
     rd.add_argument("-r", "--refs", required=True)
     rd.add_argument("-a", "--alignment-type", default="local")
-    rd.add_argument(
-        "--engine",
-        default="auto",
-        choices=[
-            "auto",
-            "shortread",
-            "segmented",
-            "stream",
-            "stream8",
-            "pallas",
-            "scan",
-        ],
-    )
+    rd.add_argument("--engine", default="auto", choices=ENGINE_CHOICES)
     rd.add_argument(
         "--align",
         action="store_true",
@@ -122,7 +111,7 @@ def _build_parser() -> argparse.ArgumentParser:
     mp = sub.add_parser(
         "map",
         help="seed-and-extend read mapping against one reference "
-        "(TPU extension: host k-mer index + diagonal voting, batched "
+        "(extension: host k-mer index + diagonal voting, batched "
         "device extension)",
     )
     mp.add_argument("-q", "--queries", required=True)
@@ -140,8 +129,7 @@ def _build_parser() -> argparse.ArgumentParser:
     mp.add_argument(
         "--band", type=int, default=32,
         help="diagonal vote band / extension window slack (bases); "
-        "windows are read_len + 4*band wide — at or under 256 they "
-        "extend on the fast short-read kernel",
+        "windows are read_len + 4*band wide",
     )
     mp.add_argument(
         "--stride", type=int, default=None,
@@ -159,9 +147,7 @@ def _build_parser() -> argparse.ArgumentParser:
         "--single-strand", action="store_true",
         help="map the forward orientation only",
     )
-    mp.add_argument(
-        "--engine", default="auto", choices=["auto", "pallas", "scan"]
-    )
+    mp.add_argument("--engine", default="auto", choices=ENGINE_CHOICES)
     mp.add_argument(
         "--seed-engine", default="host", choices=["host", "device"],
         help="where diagonal voting runs; device needs -k <= 15 "
@@ -173,7 +159,7 @@ def _build_parser() -> argparse.ArgumentParser:
     cl = sub.add_parser(
         "call",
         help="variant calling: map reads, pile up on device, call "
-        "consensus SNPs/deletions (TPU extension: map -> pileup -> "
+        "consensus SNPs/deletions (extension: map -> pileup -> "
         "call)",
     )
     cl.add_argument("-q", "--queries", required=True)
@@ -214,15 +200,13 @@ def _build_parser() -> argparse.ArgumentParser:
         "--single-strand", action="store_true",
         help="map the forward orientation only",
     )
-    cl.add_argument(
-        "--engine", default="auto", choices=["auto", "pallas", "scan"]
-    )
+    cl.add_argument("--engine", default="auto", choices=ENGINE_CHOICES)
     cl.add_argument("-o", "--output", default="calls.vcf")
 
     se = sub.add_parser(
         "search",
         help="FM-index substring search: count/locate every query in "
-        "a reference (TPU extension: device suffix array build + "
+        "a reference (extension: device suffix array build + "
         "batched backward search)",
     )
     se.add_argument("-r", "--ref", required=True, help="reference FASTA")
@@ -242,8 +226,8 @@ def _build_parser() -> argparse.ArgumentParser:
 
     ms = sub.add_parser(
         "msa",
-        help="multiple sequence alignment (TPU extension: center-star "
-        "over the batched device aligner)",
+        help="multiple sequence alignment (extension: center-star "
+        "over the device aligner)",
     )
     ms.add_argument(
         "-f",
@@ -253,7 +237,7 @@ def _build_parser() -> argparse.ArgumentParser:
         help="FASTA file(s) or a directory of .fasta files; all "
         "sequences found are aligned together",
     )
-    ms.add_argument("--engine", default="auto", choices=["auto", "scan", "pallas"])
+    ms.add_argument("--engine", default="auto", choices=ENGINE_CHOICES)
     ms.add_argument(
         "--matrix",
         default=None,
@@ -274,18 +258,17 @@ def _build_parser() -> argparse.ArgumentParser:
     am = sub.add_parser(
         "align-matrix",
         help="all-pairs DP alignment-score matrix over a FASTA dir "
-        "(TPU extension: the DP-scored counterpart of compare)",
+        "(extension: the DP-scored counterpart of compare)",
     )
     am.add_argument("-f", "--fasta-dir", required=True)
     am.add_argument("-a", "--alignment-type", default="global")
-    am.add_argument("--engine", default="auto", choices=["auto", "scan", "pallas"])
+    am.add_argument("--engine", default="auto", choices=ENGINE_CHOICES)
     am.add_argument("-o", "--output", default="alignment_scores.tsv")
     am.add_argument(
         "--alignments-out",
         default=None,
         help="also write every pair's FULL alignment (i < j) as a "
-        "2-sequence gapped FASTA in this directory — batched "
-        "streamed dirs fills + device walks (align_batch)",
+        "2-sequence gapped FASTA in this directory (align_batch)",
     )
     am.add_argument(
         "--matrix",
@@ -301,7 +284,7 @@ def main(argv: list[str] | None = None) -> int:
     """CLI entry. Each invocation is one job: the device-operand cache
     is dropped on the way out so in-process callers (tests, notebooks)
     that run many subcommands over unrelated corpora don't accumulate
-    stale HBM residents (``utils/devcache``)."""
+    stale device residents (``utils/devcache``)."""
     from genomics_rs_tpu.utils import devcache
 
     try:
@@ -359,44 +342,22 @@ def _main(argv: list[str] | None = None) -> int:
                 matrix.name or args.matrix,
                 len(matrix.alphabet),
             )
-            if args.band:
-                print(
-                    "--matrix and --band are mutually exclusive",
-                    file=sys.stderr,
-                )
-                return 2
 
-        if args.band:
-            if is_local:
-                print(
-                    "--band is global-only (banded local alignment is "
-                    "served by the map/reads modes)",
-                    file=sys.stderr,
-                )
-                return 2
-            from genomics_rs_tpu.models.banded import align_banded
-
-            seqs = container.sequences
-            if len(seqs) > 2:
-                log.warning(
-                    "More than two sequences found. Only the first "
-                    "two will be used."
-                )
-            with trace("align"):
-                aligned = align_banded(
-                    seqs[0], seqs[1], sc, band=args.band
-                )
-        else:
-            with trace("align"):
-                aligned = align_pair(
-                    container,
-                    sc,
-                    is_local=is_local,
-                    engine=args.engine,
-                    matrix=matrix,
-                )
+        with trace("align"):
+            aligned = align_pair(
+                container,
+                sc,
+                is_local=is_local,
+                engine=args.engine,
+                matrix=matrix,
+            )
         print_alignment_tables(aligned, sc, is_local, matrix=matrix)
         print(format_aligned_sequences(aligned))
+        if args.output:
+            from genomics_rs_tpu.models.msa import write_pair_fasta
+
+            write_pair_fasta(args.output, aligned, is_local)
+            print(f"wrote {args.output}")
         return 0
 
     if args.mode == "suffixtree":
@@ -506,20 +467,11 @@ def _main(argv: list[str] | None = None) -> int:
 
             from genomics_rs_tpu.models.reads import align_reads
 
-            # align_reads engines: the packed-dirs short-read kernel
-            # ("pallas", TPU) or the vmapped wavefront scan; score-only
-            # kernel names coerce to auto (backend + budget routed).
-            rd_engine = args.engine if args.engine in ("scan", "auto") else "auto"
-            if rd_engine != args.engine:
-                log.info(
-                    "engine %s is score-only; --align uses auto routing",
-                    args.engine,
-                )
             want_sam = args.format == "sam"
             t0 = time.perf_counter()
             res = align_reads(
                 queries, refs, config.scores, is_local=is_local,
-                engine=rd_engine, with_paths=False, with_cigars=True,
+                engine=args.engine, with_paths=False, with_cigars=True,
                 both_strands=args.both_strands, with_mapinfo=want_sam,
             )
             aligned, cigars = res[0], res[1]
@@ -904,13 +856,7 @@ def _main(argv: list[str] | None = None) -> int:
             import re
 
             from genomics_rs_tpu.models.aligner import align_batch
-            from genomics_rs_tpu.models.msa import (
-                _alignment_ops,
-                _gapped_pair,
-            )
-            from genomics_rs_tpu.parallel.allpairs import (
-                bucketize_pairs,
-            )
+            from genomics_rs_tpu.models.msa import write_pair_fasta
 
             os.makedirs(args.alignments_out, exist_ok=True)
             seqs = container.sequences
@@ -920,73 +866,29 @@ def _main(argv: list[str] | None = None) -> int:
                 for i in range(len(seqs))
                 if i < j
             ]
-            # Length-bucketed batches (mixed directories would pad
-            # every pair to the global max otherwise).
-            lens = [len(s) for s in seqs]
-            groups = bucketize_pairs(idx, lens)
-            alns: dict[tuple[int, int], object] = {}
-            for key in sorted(groups):
-                sub = [idx[k] for k in groups[key]]
-                if mx is not None:
-                    # Full-matrix batched alignments: one 2-D packed
-                    # stream-dirs fill + one walk_many dispatch
-                    # (round 5; score-only before).
-                    from genomics_rs_tpu.models.aligner import (
-                        matrix_align_batch,
-                    )
-
-                    res = matrix_align_batch(
-                        [(seqs[i], seqs[j]) for i, j in sub],
-                        mx,
-                        g=config.scores.g,
-                        h=config.scores.h,
-                        is_local=is_local,
-                    )
-                else:
-                    res = align_batch(
-                        [(seqs[i], seqs[j]) for i, j in sub],
+            alns = dict(
+                zip(
+                    idx,
+                    align_batch(
+                        [(seqs[i], seqs[j]) for i, j in idx],
                         config.scores,
                         is_local=is_local,
                         engine=args.engine,
-                    )
-                alns.update(zip(sub, res))
+                        matrix=mx,
+                    ),
+                )
+            )
             for i, j in idx:
-                aln = alns[(i, j)]
-                ops = _alignment_ops(aln)
-                if is_local:
-                    # A local alignment covers a region, not the
-                    # whole pair: emit the gapped REGION with its
-                    # spans in the headers (the retrace start cell —
-                    # alignment[0] — is the region END).
-                    n1 = sum(1 for o in ops if o in "MD")
-                    n2 = sum(1 for o in ops if o in "MI")
-                    si = aln.alignment[0][1] if aln.alignment else 0
-                    sj = aln.alignment[0][2] if aln.alignment else 0
-                    sub1 = seqs[i].sequence[si - n1 : si]
-                    sub2 = seqs[j].sequence[sj - n2 : sj]
-                    rowa, rowb = _gapped_pair(sub1, sub2, ops)
-                    spans = (
-                        f" span={si - n1}-{si}",
-                        f" span={sj - n2}-{sj}",
-                    )
-                else:
-                    rowa, rowb = _gapped_pair(
-                        seqs[i].sequence, seqs[j].sequence, ops
-                    )
-                    spans = ("", "")
                 tag = re.sub(r"[^A-Za-z0-9._-]+", "_", seqs[i].name[:24])
                 tag2 = re.sub(r"[^A-Za-z0-9._-]+", "_", seqs[j].name[:24])
-                path = os.path.join(
-                    args.alignments_out, f"pair_{i}_{j}_{tag}_{tag2}.fasta"
+                write_pair_fasta(
+                    os.path.join(
+                        args.alignments_out,
+                        f"pair_{i}_{j}_{tag}_{tag2}.fasta",
+                    ),
+                    alns[(i, j)],
+                    is_local,
                 )
-                with open(path, "w") as f:
-                    for name, row, span in (
-                        (seqs[i].name, rowa, spans[0]),
-                        (seqs[j].name, rowb, spans[1]),
-                    ):
-                        f.write(f">{name} score={aln.score}{span}\n")
-                        for p0 in range(0, len(row), 60):
-                            f.write(row[p0 : p0 + 60] + "\n")
             print(
                 f"wrote {len(alns)} pair alignments to "
                 f"{args.alignments_out}"

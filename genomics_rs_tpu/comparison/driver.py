@@ -19,7 +19,7 @@ in ``main`` (``/root/reference/src/main.rs:216-379``):
 
 Parallelism: the reference fans out with a rayon thread pool; here
 pairs are scheduled over a process pool (host CPU work), and the
-same driver can be pointed at the TPU batch aligner for DP-based
+same driver can be pointed at the device batch aligner for DP-based
 scoring (see parallel/allpairs.py).
 """
 

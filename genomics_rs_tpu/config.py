@@ -28,7 +28,7 @@ class Scores:
     usually negative), matching the reference recurrence
     (``/root/reference/src/alignment/algo.rs:231-247``).
 
-    ``s_transition`` is a TPU-framework extension (the reference knows
+    ``s_transition`` is an extension (the reference knows
     only match/mismatch, ``src/config.rs:6-18``): when set, DNA
     transitions (A<->G, C<->T) score ``s_transition`` and all other
     mismatches keep ``s_mismatch`` (Kimura-style two-class scoring).

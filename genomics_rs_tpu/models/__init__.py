@@ -5,7 +5,6 @@ from genomics_rs_tpu.models.aligner import (
     align_batch,
     align_pair,
 )
-from genomics_rs_tpu.models.banded import align_banded
 from genomics_rs_tpu.models.mapper import (
     KmerIndex,
     MappedRead,
@@ -30,7 +29,6 @@ __all__ = [
     "PairwiseAligner",
     "align_batch",
     "align_pair",
-    "align_banded",
     "align_reads",
     "write_sam",
     "KmerIndex",

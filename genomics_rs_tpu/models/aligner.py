@@ -1,7 +1,7 @@
 """Pairwise aligner: the user-facing alignment API.
 
-Combines a device wavefront fill (lax.scan oracle or Pallas kernel)
-with the host traceback, mirroring the ``alignment_table`` + ``retrace``
+Combines the device wavefront fill (``ops/gotoh_scan``) with the host
+traceback, mirroring the ``alignment_table`` + ``retrace``
 pipeline of the reference (``/root/reference/src/alignment/algo.rs``)
 while staying fully jit-compiled on device for the O(m*n) part.
 
@@ -18,6 +18,7 @@ import jax
 import numpy as np
 
 from genomics_rs_tpu.config import Scores
+from genomics_rs_tpu.ops.engine import resolve_engine
 from genomics_rs_tpu.ops.gotoh_scan import gotoh_fill_scan
 from genomics_rs_tpu.ops.traceback import AlignedSequences, traceback_host
 from genomics_rs_tpu.sequence import (
@@ -34,16 +35,7 @@ log = logging.getLogger(__name__)
 PAD_MULTIPLE = 128
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "is_local",
-        "engine",
-        "emit_dirs",
-        "packed_dirs",
-        "interpret",
-    ),
-)
+@functools.partial(jax.jit, static_argnames=("is_local", "emit_dirs"))
 def _fill(
     s1e,
     s2e,
@@ -51,86 +43,19 @@ def _fill(
     n,
     scores: Scores,
     is_local: bool,
-    engine: str,
     emit_dirs: bool = True,
-    packed_dirs: bool = False,
-    interpret: bool = False,
     subst_lut=None,
 ):
-    if engine == "scan":
-        return gotoh_fill_scan(
-            s1e,
-            s2e,
-            m,
-            n,
-            scores,
-            is_local,
-            emit_dirs=emit_dirs,
-            subst_lut=subst_lut,
-        )
-    elif engine == "pallas":
-        if subst_lut is not None:
-            raise ValueError(
-                "full substitution matrices run on the scan engine "
-                "(the aligner routes there automatically when "
-                "matrix= is set)"
-            )
-        if packed_dirs or not emit_dirs:
-            # Production configs (packed dirs for the device walk, or
-            # score-only) run the lean row-block kernel as ONE block:
-            # ~1.7x the general tile kernel on fills-with-dirs (round
-            # 4; same packed layout, same walk, pinned vs scan by the
-            # aligner parity tests).
-            import jax.numpy as jnp
-
-            from genomics_rs_tpu.ops.gotoh_rowblock import (
-                gotoh_rowblock_pallas,
-            )
-            from genomics_rs_tpu.ops.gotoh_scan import FillResult
-            from genomics_rs_tpu.ops.gotoh_tile import (
-                global_boundary_top,
-            )
-
-            res = gotoh_rowblock_pallas(
-                s1e,
-                s2e,
-                global_boundary_top(0, s2e.shape[0], scores),
-                m,
-                n,
-                jnp.int32(0),
-                scores,
-                is_local,
-                emit_dirs=emit_dirs,
-                emit_bottom=False,
-                interpret=interpret,
-            )
-            if is_local:
-                score, si, sj = res.best
-            else:
-                score = res.score_at_mn
-                si = jnp.asarray(m, jnp.int32)
-                sj = jnp.asarray(n, jnp.int32)
-            return FillResult(
-                dirs=res.dirs, score=score, start_i=si, start_j=sj
-            )
-        from genomics_rs_tpu.ops.gotoh_pallas import gotoh_fill_pallas
-
-        return gotoh_fill_pallas(
-            s1e,
-            s2e,
-            m,
-            n,
-            scores,
-            is_local,
-            emit_dirs=emit_dirs,
-            packed_dirs=packed_dirs,
-            interpret=interpret,
-        )
-    raise ValueError(f"Unknown engine: {engine}")
-
-
-def _default_engine() -> str:
-    return "pallas" if jax.default_backend() == "tpu" else "scan"
+    return gotoh_fill_scan(
+        s1e,
+        s2e,
+        m,
+        n,
+        scores,
+        is_local,
+        emit_dirs=emit_dirs,
+        subst_lut=subst_lut,
+    )
 
 
 class PairwiseAligner:
@@ -138,16 +63,19 @@ class PairwiseAligner:
 
     Args:
       scores: scoring parameters (``scores.s_transition`` turns on
-        kimura transition scoring in every engine).
+        kimura transition scoring).
       is_local: local vs global alignment.
-      engine: "scan" (portable lax.scan), "pallas" (TPU kernel) or
-        "auto" (pallas on TPU backends, scan elsewhere).
+      engine: a fill engine name, resolved by
+        :func:`genomics_rs_tpu.ops.engine.resolve_engine`.
       matrix: optional full substitution matrix (``SubstMatrix``,
-        e.g. ``get_matrix("BLOSUM62")``) for protein alignment — a
-        TPU-framework extension (the reference scores two values only,
-        ``algo.rs:245-248``). Matrix scoring runs on the scan engine
-        (protein-scale sequences; mutually exclusive with
-        ``s_transition``).
+        e.g. ``get_matrix("BLOSUM62")``) for protein alignment — an
+        extension (the reference scores two values only,
+        ``algo.rs:245-248``); mutually exclusive with
+        ``s_transition``. Gap costs still come from ``scores``.
+
+    The fill writes one uint8 direction code per cell,
+    (Lm+Ln+1) x (Lm+1) bytes on the device (about 1.8 GB for a pair
+    of 30 kb genomes), which is copied to the host and walked there.
     """
 
     def __init__(
@@ -155,14 +83,11 @@ class PairwiseAligner:
         scores: Scores,
         is_local: bool = False,
         engine: str = "auto",
-        interpret: bool = False,
         matrix=None,
     ):
         self.scores = scores
         self.is_local = is_local
-        self.engine = _default_engine() if engine == "auto" else engine
-        #: run Pallas kernels in interpret mode (CPU test hook only).
-        self.interpret = interpret
+        self.engine = resolve_engine(engine)
         self.matrix = matrix
         self._lut = None
         if matrix is not None:
@@ -171,65 +96,20 @@ class PairwiseAligner:
                     "matrix and scores.s_transition are mutually "
                     "exclusive"
                 )
-            # Full-matrix scoring has no wavefront-kernel formulation
-            # yet; the scan engine runs the same fill on-device.
-            self.engine = "scan"
             self._lut = np.ascontiguousarray(
                 matrix.byte_lut(), dtype=np.int32
             )
 
-    #: Largest monolithic PACKED direction bitmap before routing to
-    #: the checkpointed linear-space path (bytes; the pallas path
-    #: never unpacks — 2 bits/cell). Kept well under HBM: block tiles
-    #: also compile far faster than one huge-V kernel, and the
-    #: checkpointed output is bit-identical.
-    DIRS_BYTE_BUDGET = 256 << 20
-
-    def align(self, seq1: Sequence, seq2: Sequence) -> AlignedSequences:
+    def _encode(self, seq1: Sequence, seq2: Sequence):
         m, n = len(seq1), len(seq2)
         Lm = max(round_up(m, PAD_MULTIPLE), PAD_MULTIPLE)
         Ln = max(round_up(n, PAD_MULTIPLE), PAD_MULTIPLE)
-
-        # Monolithic PACKED dirs is (Lm+Ln+1) x roundup(Lm+1, 1024) / 4
-        # bytes (2 bits/cell, never unpacked); a very long pair
-        # overflows HBM -> checkpointed block traceback
-        # (bit-identical output, O((m/R + R) * n) memory).
-        est_dirs = (Lm + Ln + 1) * (round_up(Lm + 1, 1024)) // 4
-        if self.engine == "pallas" and est_dirs > self.DIRS_BYTE_BUDGET:
-            from genomics_rs_tpu.models.longalign import align_checkpointed
-
-            # Round-4 windowed backward: a refill materialises at most
-            # (R + 2V + 1) * V / 4 packed-dirs bytes REGARDLESS of n
-            # (the window is bounded by the capture stride V = R+1
-            # rounded to 1024), so the block height no longer depends
-            # on Ln. 65535 is the measured v5e sweet spot between
-            # per-step lane throughput (rises with V) and total
-            # diagonal-step count (falls with V): chr12 warm 19.8 s
-            # at 32767, 17.5 s at 65535; 98303's refill dirs
-            # out-block (CHUNK/16 x V words, double-buffered)
-            # overflows the 16 MB VMEM. Shorter pairs shrink to the
-            # minimal lane vector.
-            block_rows = min(
-                65535, max(round_up(m + 1, 1024) - 1, 1023)
-            )
-            log.info(
-                "align: %dx%d exceeds dirs budget -> windowed "
-                "checkpointed path (block_rows=%d)",
-                m,
-                n,
-                block_rows,
-            )
-            return align_checkpointed(
-                seq1,
-                seq2,
-                self.scores,
-                is_local=self.is_local,
-                block_rows=block_rows,
-                interpret=self.interpret,
-            )
-
         s1e = seq1.encoded(pad_to=Lm, pad_value=PAD_S1)
         s2e = seq2.encoded(pad_to=Ln, pad_value=PAD_S2)
+        return s1e, s2e, m, n
+
+    def align(self, seq1: Sequence, seq2: Sequence) -> AlignedSequences:
+        s1e, s2e, m, n = self._encode(seq1, seq2)
         if self.matrix is not None:
             from genomics_rs_tpu.ops.subst import warn_unknown_bytes
 
@@ -239,11 +119,6 @@ class PairwiseAligner:
                 where="align",
             )
 
-        # The pallas engine keeps the direction bitmap PACKED (2 bits
-        # per cell) and chases it on device — only the O(m+n) move
-        # list ever reaches the host, vs a per-cell uint8 table
-        # (4x the HBM and a table-sized device->host transfer).
-        packed = self.engine == "pallas"
         timer = PhaseTimer("align")
         with spinner(
             "Computing sequence table...", "Sequence table computed"
@@ -255,82 +130,28 @@ class PairwiseAligner:
                 n,
                 self.scores,
                 self.is_local,
-                self.engine,
-                packed_dirs=packed,
-                interpret=self.interpret,
                 subst_lut=self._lut,
             )
             jax.block_until_ready(res.score)
         with spinner(
             "Retracing optimal alignment...", "Retrace complete"
         ), timer.span("retrace"):
-            if packed:
-                from genomics_rs_tpu.ops.traceback import classify_moves
-                from genomics_rs_tpu.ops.traceback_device import (
-                    device_walk,
-                )
-
-                # max_steps is a static arg — bucket it coarsely so
-                # length-neighbouring pairs share the compiled walker.
-                max_steps = round_up(Lm + Ln + 1, 8192)
-                codes, i_f, j_f, done = device_walk(
-                    res.dirs,
-                    res.start_i,
-                    res.start_j,
-                    np.int32(0),
-                    max_steps=max_steps,
-                    interpret=self.interpret,
-                )
-                if not bool(done):
-                    raise RuntimeError(
-                        "monolithic retrace left the table at "
-                        f"({int(i_f)}, {int(j_f)})"
-                    )
-                if not self.is_local and (int(i_f), int(j_f)) != (0, 0):
-                    raise RuntimeError(
-                        "global retrace hit a stop code at "
-                        f"({int(i_f)}, {int(j_f)})"
-                    )
-                out = classify_moves(
-                    codes,
-                    int(res.start_i),
-                    int(res.start_j),
-                    int(res.score),
-                    seq1,
-                    seq2,
-                )
-            else:
-                dirs = np.asarray(res.dirs)
-                out = traceback_host(
-                    dirs,
-                    int(res.start_i),
-                    int(res.start_j),
-                    int(res.score),
-                    seq1,
-                    seq2,
-                    self.is_local,
-                )
+            dirs = np.asarray(res.dirs)
+            out = traceback_host(
+                dirs,
+                int(res.start_i),
+                int(res.start_j),
+                int(res.score),
+                seq1,
+                seq2,
+                self.is_local,
+            )
         return out
 
-    #: Above this many rows the monolithic wavefront state no longer
-    #: fits VMEM — score via rolling row blocks instead.
-    SCORE_ROWS_LIMIT = 131072
-
     def score_only(self, seq1: Sequence, seq2: Sequence) -> int:
-        """Alignment score without traceback (no direction bitmap at
-        all — O(m+n) device memory; chromosome-length pairs route
-        through rolling block fills)."""
-        m, n = len(seq1), len(seq2)
-        if self.engine == "pallas" and m > self.SCORE_ROWS_LIMIT:
-            from genomics_rs_tpu.models.longalign import score_long
-
-            return int(
-                score_long(seq1, seq2, self.scores, is_local=self.is_local)[0]
-            )
-        Lm = max(round_up(m, PAD_MULTIPLE), PAD_MULTIPLE)
-        Ln = max(round_up(n, PAD_MULTIPLE), PAD_MULTIPLE)
-        s1e = seq1.encoded(pad_to=Lm, pad_value=PAD_S1)
-        s2e = seq2.encoded(pad_to=Ln, pad_value=PAD_S2)
+        """Alignment score without traceback: no direction table, so
+        the fill needs only O(m+n) device memory."""
+        s1e, s2e, m, n = self._encode(seq1, seq2)
         res = _fill(
             s1e,
             s2e,
@@ -338,7 +159,6 @@ class PairwiseAligner:
             n,
             self.scores,
             self.is_local,
-            self.engine,
             emit_dirs=False,
             subst_lut=self._lut,
         )
@@ -350,423 +170,23 @@ def align_batch(
     scores: Scores,
     is_local: bool = False,
     engine: str = "auto",
-    interpret: bool = False,
+    matrix=None,
 ) -> list[AlignedSequences]:
-    """Full alignments (path + stats) for a batch of pairs.
+    """Full alignments (path + stats) for a list of pairs, in order.
 
-    The TPU-native batched counterpart of :meth:`PairwiseAligner.align`
-    (no reference analog — ``algo.rs`` aligns one pair per process
-    run): batches stream every pair's columns through ONE continuous
-    wavefront that also emits the packed direction words
-    (``ops/gotoh_stream.gotoh_stream_fill_dirs``), so the fill pays
-    neither the per-pair diagonal ramp (~2x at square pairs) nor
-    K separate dispatch latencies; each pair's bitmap slice is then
-    chased by the device walker — in local mode from the stream's
-    per-segment reference keep-last argmax start cell. Falls back to
-    the routed per-pair aligner whenever the stream formulation
-    doesn't apply (single pair, non-TPU engines, extreme lengths).
-    Output is bit-identical to the per-pair path (pinned by tests and
-    the ``stream_dirs`` smoke rows).
-
-    Pairs are padded to the batch maximum — pre-bucket by length for
-    very mixed batches (``parallel/allpairs.bucketize_pairs``).
+    No reference analog (``algo.rs`` aligns one pair per process run).
+    Each pair is aligned by :class:`PairwiseAligner`; pairs are padded
+    to multiples of ``PAD_MULTIPLE``, so pairs of similar length share
+    one compiled fill (pre-bucket very mixed lists with
+    ``parallel/allpairs.bucketize_pairs``). ``matrix`` selects
+    full-matrix (protein) scoring with gap costs from ``scores``.
     """
-    from genomics_rs_tpu.ops.traceback import classify_moves
-
-    if engine == "auto":
-        engine = _default_engine()
+    if matrix is not None:
+        scores = Scores(s_match=0, s_mismatch=0, g=scores.g, h=scores.h)
     aligner = PairwiseAligner(
-        scores, is_local=is_local, engine=engine, interpret=interpret
+        scores, is_local=is_local, engine=engine, matrix=matrix
     )
-    if engine != "pallas" or len(pairs) < 2:
-        return [aligner.align(a, b) for a, b in pairs]
-
-    Lm = max(
-        round_up(max(len(a) for a, _ in pairs), PAD_MULTIPLE),
-        PAD_MULTIPLE,
-    )
-    Ln = max(
-        round_up(max(len(b) for _, b in pairs), PAD_MULTIPLE),
-        PAD_MULTIPLE,
-    )
-    max_steps = round_up(Lm + Ln + 1, 8192)
-    group = _stream_group_pairs(Lm, Ln, max_steps)
-    if group < 2:
-        # One pair's footprint alone busts the budget: the per-pair
-        # aligner routes such pairs to the checkpointed linear-space
-        # path (its DIRS_BYTE_BUDGET gate) instead of asking the
-        # stream for a hundreds-of-GB dirs allocation.
-        return [aligner.align(a, b) for a, b in pairs]
-    out: list[AlignedSequences] = []
-    for g0 in range(0, len(pairs), group):
-        chunk = pairs[g0 : g0 + group]
-        walked = None
-        if len(chunk) >= 2:
-            s1b = np.stack(
-                [
-                    a.encoded(pad_to=Lm, pad_value=PAD_S1)
-                    for a, _ in chunk
-                ]
-            )
-            s2b = np.stack(
-                [
-                    b.encoded(pad_to=Ln, pad_value=PAD_S2)
-                    for _, b in chunk
-                ]
-            )
-            ms = np.array([len(a) for a, _ in chunk], np.int32)
-            ns = np.array([len(b) for _, b in chunk], np.int32)
-            walked = stream_walk_group(
-                s1b, s2b, ms, ns, scores, is_local, interpret,
-                max_steps,
-            )
-        if walked is None:
-            out.extend(aligner.align(a, b) for a, b in chunk)
-            continue
-        moves, scv, sci, scj = walked
-        for t, (a, b) in enumerate(chunk):
-            out.append(
-                classify_moves(
-                    moves[t],
-                    int(sci[t]),
-                    int(scj[t]),
-                    int(scv[t]),
-                    a,
-                    b,
-                )
-            )
-    return out
-
-
-def _stream_group_pairs(Lm: int, Ln: int, max_steps: int) -> int:
-    """Pairs per streamed-dirs group so one group's device footprint
-    stays around 4 GB. Counts what is actually allocated: the global
-    packed-word array costs ~L1*V/4 bytes PER SEGMENT (L1 is floored
-    at V+CHUNK, so short pairs cost far more than their cell count
-    suggests) and walk_many's move buffer costs ceil(max_steps/16)
-    rows of 512 B per walk (max_steps is rounded up for jit-cache
-    sharing — 32x the path length at 512 bp). The round-4 review
-    caught the old (Lm+Ln+1)*V/8 estimate under-counting both by an
-    order of magnitude for short-pair buckets (a 32k-pair group would
-    have OOMed a 16 GB chip). Returns < 2 when even one pair busts
-    the budget (callers fall back to the per-pair aligner)."""
-    from genomics_rs_tpu.ops.gotoh_stream import _plan_stream
-
-    V, _, L1, _, _ = _plan_stream(Lm, Ln, 2)
-    per_stream = L1 * V // 4
-    per_walk = -(-max_steps // 16) * 128 * 4
-    return int((4 << 30) // max(per_stream + per_walk, 1))
-
-
-def stream_walk_group(
-    s1b: np.ndarray,
-    s2b: np.ndarray,
-    ms: np.ndarray,
-    ns: np.ndarray,
-    scores: Scores,
-    is_local: bool,
-    interpret: bool,
-    max_steps: int,
-):
-    """One streamed dirs fill + per-segment device walks for a padded
-    group — the shared engine under :func:`align_batch` and the MSA
-    star stage. Returns ``(moves, score, start_i, start_j)`` with
-    ``moves[t]`` the traceback-order uint8 codes of pair ``t``, or
-    ``None`` when the stream formulation doesn't apply (the caller
-    falls back to per-pair fills)."""
-    from genomics_rs_tpu.ops.gotoh_stream import PACK as _PACK
-    from genomics_rs_tpu.ops.gotoh_stream import gotoh_stream_fill_dirs
-    from genomics_rs_tpu.ops.traceback_device import device_walk
-    from genomics_rs_tpu.ops.traceback_pallas import (
-        MAX_STEPS_CAP,
-        PKW,
-        unpack_moves,
-        walk_many,
-    )
-    from genomics_rs_tpu.utils.devcache import device_put_cached
-
-    stream = gotoh_stream_fill_dirs(
-        device_put_cached(s1b),
-        device_put_cached(s2b),
-        ms,
-        ns,
-        scores,
-        is_local=is_local,
-        interpret=interpret,
-    )
-    if stream is None:
-        return None
-    sci = np.asarray(stream.start_i)
-    scj = np.asarray(stream.start_j)
-    scv = np.asarray(stream.score)
-    moves: list[np.ndarray] = []
-    if stream.KW >= PKW and max_steps <= MAX_STEPS_CAP:
-        # ONE dispatch walks every segment (the per-walk fixed cost is
-        # the dispatch+sync round trip, not the chase): per-segment
-        # word-row offsets into the global stream bitmap replace the
-        # per-segment slice copies.
-        koffs = np.arange(len(ms), dtype=np.int32) * (
-            stream.L1 // _PACK
-        )
-        words, counts, i_fs, j_fs, dones = jax.device_get(
-            walk_many(
-                stream.dirs,
-                np.asarray(sci, np.int32),
-                np.asarray(scj, np.int32),
-                koffs,
-                KW=stream.KW,
-                max_steps=max_steps,
-                interpret=interpret,
-            )
-        )
-        for t in range(len(ms)):
-            if not bool(dones[t]) or (
-                not is_local
-                and (int(i_fs[t]), int(j_fs[t])) != (0, 0)
-            ):
-                raise RuntimeError(
-                    "batched retrace left the table at "
-                    f"({int(i_fs[t])}, {int(j_fs[t])})"
-                )
-            moves.append(unpack_moves(words[t], int(counts[t])))
-        return moves, scv, sci, scj
-    for t in range(len(ms)):
-        codes, i_f, j_f, done = device_walk(
-            stream.segment_dirs(t),
-            np.int32(sci[t]),
-            np.int32(scj[t]),
-            np.int32(0),
-            max_steps=max_steps,
-            interpret=interpret,
-        )
-        if not bool(done) or (
-            not is_local and (int(i_f), int(j_f)) != (0, 0)
-        ):
-            raise RuntimeError(
-                "batched retrace left the table at "
-                f"({int(i_f)}, {int(j_f)})"
-            )
-        moves.append(np.asarray(codes))
-    return moves, scv, sci, scj
-
-
-def matrix_align_batch(
-    pairs: list[tuple[Sequence, Sequence]],
-    matrix,
-    g: int,
-    h: int,
-    is_local: bool = False,
-    interpret: bool = False,
-) -> list[AlignedSequences]:
-    """Full alignments (path + stats) for a batch of pairs under a
-    full substitution matrix — the protein counterpart of
-    :func:`align_batch` (round-4 matrix alignment was pinned to the
-    per-pair lax.scan engine; no reference analog —
-    ``algo.rs:151-282`` knows two scores only).
-
-    One 2-D packed continuous-stream fill emits every pair's packed
-    direction bitmap (``ops/gotoh_matrix_stream``), then ONE
-    ``walk_many`` dispatch chases all of them (per-pair word-row AND
-    lane offsets into the global stream array). Bit-identical to the
-    per-pair scan aligner (pinned by tests + the ``matrix_stream``
-    smoke rows). Falls back to the per-pair aligner when the stream
-    doesn't apply (empty/degenerate pairs, non-TPU without
-    interpret, giant matrices).
-    """
-    import jax.numpy as jnp
-
-    from genomics_rs_tpu.ops.gotoh_matrix_stream import (
-        _plan_mstream,
-        gotoh_matrix_stream_fill_dirs,
-    )
-    from genomics_rs_tpu.ops.traceback import classify_moves
-    from genomics_rs_tpu.ops.traceback_pallas import (
-        MAX_STEPS_CAP,
-        PKW,
-        unpack_moves,
-        walk_many,
-    )
-    from genomics_rs_tpu.utils.devcache import device_put_cached
-
-    def fallback(sub):
-        aligner = PairwiseAligner(
-            Scores(s_match=0, s_mismatch=0, g=g, h=h),
-            is_local=is_local,
-            engine="scan",
-            matrix=matrix,
-            interpret=interpret,
-        )
-        return [aligner.align(a, b) for a, b in sub]
-
-    usable = (
-        jax.default_backend() == "tpu" or interpret
-    ) and len(pairs) >= 1
-    if not usable:
-        return fallback(pairs)
-
-    Lm = max(
-        round_up(max((len(a) for a, _ in pairs), default=1), PAD_MULTIPLE),
-        PAD_MULTIPLE,
-    )
-    Ln = max(
-        round_up(max((len(b) for _, b in pairs), default=1), PAD_MULTIPLE),
-        PAD_MULTIPLE,
-    )
-    max_steps = min(round_up(Lm + Ln + 1, 1024), MAX_STEPS_CAP)
-    if Lm + Ln + 1 > MAX_STEPS_CAP:
-        return fallback(pairs)
-    # Group size: footprint per pair ~ L1*S/4 B dirs words + L1*S B
-    # int8 subs stream (+ transposed intermediates ~3x) + the walk
-    # move buffer; bound a group near 4 GB.
-    S, G, V, C, L1, T, K, Kp = _plan_mstream(Lm, Ln, max(len(pairs), 1))
-    per_pair = L1 * S * 4 + -(-max_steps // 16) * 128 * 4
-    group = max(int((4 << 30) // max(per_pair, 1)), 1)
-
-    out: list[AlignedSequences] = []
-    for g0 in range(0, len(pairs), group):
-        chunk = pairs[g0 : g0 + group]
-        s1b = np.stack(
-            [a.encoded(pad_to=Lm, pad_value=PAD_S1) for a, _ in chunk]
-        )
-        s2b = np.stack(
-            [b.encoded(pad_to=Ln, pad_value=PAD_S2) for _, b in chunk]
-        )
-        ms = np.array([len(a) for a, _ in chunk], np.int32)
-        ns = np.array([len(b) for _, b in chunk], np.int32)
-        res = gotoh_matrix_stream_fill_dirs(
-            device_put_cached(s1b),
-            device_put_cached(s2b),
-            ms,
-            ns,
-            matrix,
-            g,
-            h,
-            is_local=is_local,
-            interpret=interpret,
-        )
-        if res is None:
-            out.extend(fallback(chunk))
-            continue
-        B = len(chunk)
-        koffs = np.array([res.koff(p) for p in range(B)], np.int32)
-        loffs = np.array([res.loff(p) for p in range(B)], np.int32)
-        scv = np.asarray(res.score)
-        if B >= 16:
-            # Many short walks: the scalar-core chase is ~0.6 us/move
-            # SEQUENTIALLY per walk (a 1024-pair protein batch would
-            # spend ~0.5 s walking) — the LOCKSTEP vector walker
-            # advances every walk per step instead. Per-pair bitmaps
-            # are gathered into (B, KW, S) diag16 stacks first.
-            from genomics_rs_tpu.ops.traceback_batch import (
-                unpack_moves4,
-                walk_batch,
-            )
-
-            stacked = _gather_pair_dirs(
-                res.dirs,
-                jnp.asarray(koffs),
-                jnp.asarray(loffs),
-                KW=res.KW,
-                S=res.S,
-            )
-            packed, counts, i_fs, j_fs, dones = jax.device_get(
-                walk_batch(
-                    stacked,
-                    jnp.asarray(res.start_i, jnp.int32),
-                    jnp.asarray(res.start_j, jnp.int32),
-                    Scores(0, 0, g, h),
-                    is_local,
-                    "diag16",
-                    max_steps=max_steps,
-                    packed_moves=True,
-                )
-            )
-            moves_all = unpack_moves4(packed, max_steps)
-            for t in range(B):
-                if not bool(dones[t]) or (
-                    not is_local
-                    and (int(i_fs[t]), int(j_fs[t])) != (0, 0)
-                ):
-                    raise RuntimeError(
-                        "matrix batched retrace left the table at "
-                        f"({int(i_fs[t])}, {int(j_fs[t])})"
-                    )
-            from genomics_rs_tpu.ops.traceback import (
-                classify_moves_batch,
-            )
-
-            out.extend(
-                classify_moves_batch(
-                    moves_all,
-                    counts,
-                    res.start_i,
-                    res.start_j,
-                    scv,
-                    chunk,
-                )
-            )
-            continue
-        # Short pairs: the walker's DMA window needs KW >= PKW rows;
-        # reading past a short segment's words is safe (never
-        # consumed: k <= m+n), but the LAST segment may sit near the
-        # end of the global array — pad rows so every chase's window
-        # stays in bounds.
-        KW = max(res.KW, PKW)
-        need = int(koffs.max()) + KW
-        dirs = res.dirs
-        if need > dirs.shape[0]:
-            dirs = jnp.concatenate(
-                [
-                    dirs,
-                    jnp.zeros(
-                        (need - dirs.shape[0], dirs.shape[1]),
-                        dirs.dtype,
-                    ),
-                ]
-            )
-        words, counts, i_fs, j_fs, dones = jax.device_get(
-            walk_many(
-                dirs,
-                res.start_i.astype(np.int32),
-                res.start_j.astype(np.int32),
-                koffs,
-                KW=KW,
-                max_steps=max_steps,
-                interpret=interpret,
-                loffs=loffs,
-            )
-        )
-        for t, (a, b) in enumerate(chunk):
-            if not bool(dones[t]) or (
-                not is_local
-                and (int(i_fs[t]), int(j_fs[t])) != (0, 0)
-            ):
-                raise RuntimeError(
-                    "matrix batched retrace left the table at "
-                    f"({int(i_fs[t])}, {int(j_fs[t])})"
-                )
-            out.append(
-                classify_moves(
-                    unpack_moves(words[t], int(counts[t])),
-                    int(res.start_i[t]),
-                    int(res.start_j[t]),
-                    int(scv[t]),
-                    a,
-                    b,
-                )
-            )
-    return out
-
-
-@functools.partial(jax.jit, static_argnames=("KW", "S"))
-def _gather_pair_dirs(dirs, koffs, loffs, KW: int, S: int):
-    """(B, KW, S) diag16 stacks from the global stream bitmap (one
-    vmapped dynamic-slice = one gather op)."""
-
-    def one(k0, l0):
-        return jax.lax.dynamic_slice(dirs, (k0, l0), (KW, S))
-
-    return jax.vmap(one)(koffs, loffs)
+    return [aligner.align(a, b) for a, b in pairs]
 
 
 def align_pair(

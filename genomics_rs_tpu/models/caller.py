@@ -300,7 +300,12 @@ def _scatter_device(p, c, *, ref_len: int):
 
 
 def _scatter_device_w(p, c, w, *, ref_len: int):
-    """Counts + weight sums in one fused device dispatch."""
+    """Counts + weight sums in one fused device dispatch.
+
+    Counts are int32 and exact. Weight sums are float32 scatter-adds
+    whose summation order on the GPU varies from run to run, so they
+    match a host sum to float32 rounding (relative ~1e-6), not bit for
+    bit."""
     global _SCATTER_W_JIT
     if _SCATTER_W_JIT is None:
         import functools

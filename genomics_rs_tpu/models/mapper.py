@@ -4,7 +4,7 @@ Framework extension — the reference aligns exactly two whole sequences
 (``/root/reference/src/alignment/algo.rs:151-282``) and has no mapping
 mode; full DP of every read against a chromosome costs
 ``|read| * |ref|`` cells per read. This module adds the standard
-mapper decomposition, laid out TPU-first:
+mapper decomposition, host work vectorized and DP on the device:
 
 * **host** (irregular, pointer-chasing — host-side per SURVEY §7's
   stance): an exact k-mer index of the reference (2-bit Horner-packed
@@ -14,7 +14,7 @@ mapper decomposition, laid out TPU-first:
   per-read Python loops;
 * **device**: all candidate windows are extended in fixed-shape
   batched dispatches through :func:`~genomics_rs_tpu.models.reads.
-  align_reads` (short-read Pallas fill + lockstep batched traceback),
+  align_reads` (batched scan fill + lockstep batched traceback),
   local mode, so unaligned read ends become soft clips.
 
 Cost per read drops from ``|read| * |ref|`` to
@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+from typing import NamedTuple
 
 import numpy as np
 
@@ -134,7 +135,7 @@ class KmerIndex:
 
         Device seeding needs ``k <= 15`` so packed keys fit 30 bits —
         JAX defaults to 32-bit ints and 64-bit sorts/searches are slow
-        on TPU."""
+        on accelerators."""
         if self.k > 15:
             raise ValueError(
                 f"device seeding requires k <= 15 (int32 keys); "
@@ -438,62 +439,43 @@ def _vote_windows(
     return votes, wlo, wlo + 2 * band, anchor, votes2
 
 
-def map_reads(
-    queries: list[Sequence],
-    ref: Sequence | list[Sequence],
-    scores: Scores,
-    *,
-    index: KmerIndex | None = None,
-    k: int = 21,
-    stride: int | None = None,
-    band: int = 32,
-    max_hits: int = 64,
-    min_seeds: int = 2,
-    both_strands: bool = True,
-    engine: str = "auto",
-    seed_engine: str = "host",
-    with_paths: bool = False,
-    batch: int = 4096,
-) -> list[MappedRead]:
-    """Map ``queries`` against ``ref``; results keep input order.
+class ExtensionPlan(NamedTuple):
+    """Per-read seeding outcome of :func:`plan_extensions`.
 
-    ``ref`` may be one contig or a list (a multi-FASTA assembly);
-    votes ride one global concatenated coordinate space, the winning
-    window is clipped to its owning contig, and each result's
-    ``contig``/``mapinfo`` are contig-relative — ready for the SAM
-    writer. ``stride`` samples every stride-th read k-mer as a seed
-    (default ``max(1, k // 2)`` — two seeds cover any exact match of
-    length ``>= k + stride``); ``min_seeds`` is the vote threshold
-    below which a read is reported unmapped without an extension
-    dispatch. Pass a prebuilt ``index`` to amortize it across calls
-    (its ``k`` then wins). ``seed_engine="device"`` votes on the
-    accelerator via the fixed-shape jitted twin (requires ``k <= 15``;
-    bit-identical to the host engine).
-
-    Extension windows are ``read_len + 4*band`` wide; keeping that at
-    or under the short-read kernel's 256-byte VMEM cap
-    (``reads._PALLAS_MAX_LEN``) keeps the extension on the Pallas
-    path — e.g. 128 bp reads with the default ``band=32``, or 150 bp
-    reads with ``band<=26``. Wider windows still work but fall back to
-    the scan fill.
+    ``chosen[i]``/``strands[i]``: the orientation read ``i`` extends
+    in; ``votes``/``votes2``: its winning and runner-up vote counts
+    (MAPQ margin). ``mapped_ix`` lists the reads with a candidate
+    window; for the t-th of them ``win_seqs[t]`` is the window's
+    reference slice, starting at contig offset ``win_starts[t]`` of
+    ``win_contig[t]``.
     """
-    if band < 1:
-        raise ValueError(f"band={band} must be >= 1 (diagonal bin width)")
-    if max_hits < 1:
-        raise ValueError(f"max_hits={max_hits} must be >= 1")
-    refs = [ref] if isinstance(ref, Sequence) else list(ref)
-    if index is None:
-        index = KmerIndex(refs, k)
-    if len(index.refs) != len(refs) or any(
-        a.sequence is not b.sequence and a.sequence != b.sequence
-        for a, b in zip(index.refs, refs)
-    ):
-        raise ValueError("index was built for a different reference")
-    k = index.k
-    stride = max(1, k // 2) if stride is None else max(1, stride)
+
+    chosen: list
+    strands: list
+    votes: np.ndarray
+    votes2: np.ndarray
+    mapped_ix: list
+    win_seqs: list
+    win_starts: list
+    win_contig: list
+
+
+def plan_extensions(
+    queries: list[Sequence],
+    index: KmerIndex,
+    *,
+    stride: int,
+    band: int,
+    max_hits: int,
+    min_seeds: int,
+    both_strands: bool,
+    seed_engine: str = "host",
+) -> ExtensionPlan:
+    """Seed every read and pick its extension window (host work plus
+    the optional device vote). A read's plan depends on that read
+    alone, so planning a subset of reads gives those reads' windows
+    exactly as :func:`map_reads` extends them."""
     B = len(queries)
-    if B == 0:
-        return []
     # Case-normalize for seeding AND extension: the index case-folds
     # (soft-masked lowercase reference regions still seed) and the DP
     # layer compares raw bytes, so both sides must see one case or a
@@ -575,6 +557,81 @@ def map_reads(
         win_starts.append(ws - c0)
         win_contig.append(contig)
         mapped_ix.append(int(i))
+
+    return ExtensionPlan(
+        chosen, strands, votes, votes2,
+        mapped_ix, win_seqs, win_starts, win_contig,
+    )
+
+
+def map_reads(
+    queries: list[Sequence],
+    ref: Sequence | list[Sequence],
+    scores: Scores,
+    *,
+    index: KmerIndex | None = None,
+    k: int = 21,
+    stride: int | None = None,
+    band: int = 32,
+    max_hits: int = 64,
+    min_seeds: int = 2,
+    both_strands: bool = True,
+    engine: str = "auto",
+    seed_engine: str = "host",
+    with_paths: bool = False,
+    batch: int = 4096,
+) -> list[MappedRead]:
+    """Map ``queries`` against ``ref``; results keep input order.
+
+    ``ref`` may be one contig or a list (a multi-FASTA assembly);
+    votes ride one global concatenated coordinate space, the winning
+    window is clipped to its owning contig, and each result's
+    ``contig``/``mapinfo`` are contig-relative — ready for the SAM
+    writer. ``stride`` samples every stride-th read k-mer as a seed
+    (default ``max(1, k // 2)`` — two seeds cover any exact match of
+    length ``>= k + stride``); ``min_seeds`` is the vote threshold
+    below which a read is reported unmapped without an extension
+    dispatch. Pass a prebuilt ``index`` to amortize it across calls
+    (its ``k`` then wins). ``seed_engine="device"`` votes on the
+    accelerator via the fixed-shape jitted twin (requires ``k <= 15``;
+    bit-identical to the host engine).
+
+    Extension windows are ``read_len + 4*band`` wide
+    (:func:`plan_extensions`).
+    """
+    if band < 1:
+        raise ValueError(f"band={band} must be >= 1 (diagonal bin width)")
+    if max_hits < 1:
+        raise ValueError(f"max_hits={max_hits} must be >= 1")
+    refs = [ref] if isinstance(ref, Sequence) else list(ref)
+    if index is None:
+        index = KmerIndex(refs, k)
+    if len(index.refs) != len(refs) or any(
+        a.sequence is not b.sequence and a.sequence != b.sequence
+        for a, b in zip(index.refs, refs)
+    ):
+        raise ValueError("index was built for a different reference")
+    k = index.k
+    stride = max(1, k // 2) if stride is None else max(1, stride)
+    B = len(queries)
+    if B == 0:
+        return []
+    plan = plan_extensions(
+        queries,
+        index,
+        stride=stride,
+        band=band,
+        max_hits=max_hits,
+        min_seeds=min_seeds,
+        both_strands=both_strands,
+        seed_engine=seed_engine,
+    )
+    chosen, strands, votes, votes2 = (
+        plan.chosen, plan.strands, plan.votes, plan.votes2
+    )
+    mapped_ix, win_seqs, win_starts, win_contig = (
+        plan.mapped_ix, plan.win_seqs, plan.win_starts, plan.win_contig
+    )
 
     ext: dict[int, tuple] = {}
     if mapped_ix:

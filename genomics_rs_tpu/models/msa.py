@@ -3,7 +3,7 @@
 No reference counterpart: ``/root/reference`` stops at pairwise
 alignment (``src/alignment/algo.rs``) and whole-corpus LCS similarity
 (``src/main.rs:216-379``). This module composes those two capabilities
-into a proper MSA the TPU way:
+into a proper MSA:
 
 1. **Center selection** — the all-pairs global score matrix comes from
    the batched device engines (one bucketed dispatch over the whole
@@ -12,15 +12,8 @@ into a proper MSA the TPU way:
    2-approximation pivot, argmax instead of argmin because these are
    similarity scores).
 2. **Star alignments** — every other sequence is globally aligned to
-   the center. On the pallas engine the K-1 fills dispatch
-   back-to-back (async, shared compiled shape); their packed
-   direction bitmaps are walked in ONE lockstep device dispatch
-   (``ops/traceback_batch.walk_batch``, layout "diag16") when the
-   stack is small, or per pair via the Mosaic hardware-loop walker
-   (``ops/traceback_device.device_walk``) when stacking would force
-   XLA to re-tile gigabytes — round 4's batching of what used to be
-   K-1 sequential checkpointed aligns. Pairs too long even for one
-   monolithic bitmap fall back to the routed pairwise aligner.
+   the center by :func:`~genomics_rs_tpu.models.aligner.align_batch`
+   (one compiled fill shape per padded length).
 3. **Merge** — "once a gap, always a gap": between two center chars
    (a "slot") the merged alignment carries the MAXIMUM of the gap
    runs any pairwise alignment put there, each row's inserted chars
@@ -42,9 +35,9 @@ import logging
 import numpy as np
 
 from genomics_rs_tpu.config import Scores
-from genomics_rs_tpu.models.aligner import PairwiseAligner
+from genomics_rs_tpu.models.aligner import align_batch
 from genomics_rs_tpu.ops.traceback import AlignedSequences, AlignmentChoice
-from genomics_rs_tpu.sequence import Sequence, SequenceContainer
+from genomics_rs_tpu.sequence import SequenceContainer
 from genomics_rs_tpu.utils.profiling import PhaseTimer
 
 log = logging.getLogger(__name__)
@@ -128,6 +121,37 @@ def _gapped_pair(center: str, other: str, ops: str) -> tuple[str, str]:
     return "".join(crow), "".join(orow)
 
 
+def write_pair_fasta(path: str, aln: AlignedSequences, is_local: bool):
+    """Write one pairwise alignment as a 2-record gapped FASTA.
+
+    A global alignment spells both sequences whole. A local alignment
+    covers a region, not the whole pair: the gapped REGION is written
+    with ``span=start-end`` (0-based, end exclusive) in each header —
+    the retrace start cell (``alignment[0]``) is the region end.
+    Headers carry ``score=`` (60-column wrapped rows).
+    """
+    ops = _alignment_ops(aln)
+    s1, s2 = aln.s1.sequence, aln.s2.sequence
+    if is_local:
+        n1 = sum(1 for o in ops if o in "MD")
+        n2 = sum(1 for o in ops if o in "MI")
+        si = aln.alignment[0][1] if aln.alignment else 0
+        sj = aln.alignment[0][2] if aln.alignment else 0
+        rowa, rowb = _gapped_pair(s1[si - n1 : si], s2[sj - n2 : sj], ops)
+        spans = (f" span={si - n1}-{si}", f" span={sj - n2}-{sj}")
+    else:
+        rowa, rowb = _gapped_pair(s1, s2, ops)
+        spans = ("", "")
+    with open(path, "w") as f:
+        for name, row, span in (
+            (aln.s1.name, rowa, spans[0]),
+            (aln.s2.name, rowb, spans[1]),
+        ):
+            f.write(f">{name} score={aln.score}{span}\n")
+            for p0 in range(0, len(row), 60):
+                f.write(row[p0 : p0 + 60] + "\n")
+
+
 def _merge_center(
     master: str, rows: list[str], new_center: str, new_row: str
 ) -> tuple[str, list[str], str]:
@@ -176,147 +200,6 @@ def _merge_center(
         new_row[i] if i >= 0 else _GAP for i in take_b
     )
     return "".join(merged), out_rows, padded_new
-
-
-#: forward-op byte by walk move code (DIR_SUB/INS/DEL = 0/1/2).
-_OP_BY_CODE = np.frombuffer(b"MID?", dtype=np.uint8)
-
-#: largest per-pair packed bitmap the batched star stage will build
-#: monolithically (sub-batched to ~4 GB live); beyond this, pairs run
-#: through the routed aligner (checkpointed path) one at a time.
-STAR_PAIR_DIRS_BUDGET = 1 << 30
-
-
-#: largest STACKED bitmap the lockstep walk will take. The batched
-#: gather makes XLA re-tile the whole stack (pad B up to the sublane
-#: multiple + a layout copy, ~3x the stacked bytes live) — fine at
-#: read scale, fatal at 30 kb x 9 pairs (17.7 GB observed). Above
-#: this, each pair walks alone via the Mosaic hardware-loop walker,
-#: which leaves the bitmap in HBM untouched.
-LOCKSTEP_STACK_BUDGET = 512 << 20
-
-
-def _star_ops_batched(
-    cseq: Sequence,
-    others: list[Sequence],
-    scores: Scores,
-    interpret: bool,
-) -> list[str]:
-    """Per-pair forward op strings (M/I/D) for center-vs-other global
-    alignments: K-1 async packed-dirs fills (one compiled shape), then
-    ONE lockstep batched device walk when the stacked bitmaps are
-    small, or per-pair Mosaic hardware-loop walks when they are not.
-    Bit-identical to walking each pair alone (both walkers replicate
-    ``walk_block``'s movement semantics)."""
-    from genomics_rs_tpu.models.aligner import PAD_MULTIPLE, _fill
-    from genomics_rs_tpu.ops.traceback_batch import NO_MOVE, walk_batch
-    from genomics_rs_tpu.ops.traceback_device import device_walk
-    from genomics_rs_tpu.sequence import PAD_S1, PAD_S2, round_up
-
-    import jax
-    import jax.numpy as jnp
-
-    m = len(cseq)
-    Lm = max(round_up(m, PAD_MULTIPLE), PAD_MULTIPLE)
-    Ln = max(
-        round_up(max(len(o) for o in others), PAD_MULTIPLE),
-        PAD_MULTIPLE,
-    )
-    s1e = cseq.encoded(pad_to=Lm, pad_value=PAD_S1)
-    # Sub-batch so the stacked packed bitmaps stay well under HBM
-    # (each is (Kp/16, V) int32 ~ (Lm+Ln)*Lm/4 bytes; the streamed
-    # fill's shared-diagonal layout needs ~half that).
-    per_pair = (Lm + Ln + 1) * round_up(Lm + 1, 1024) // 4
-    group = max(1, int((4 << 30) // max(per_pair, 1)))
-    max_steps = round_up(Lm + Ln + 1, 8192)
-    ops: list[str] = []
-    for g0 in range(0, len(others), group):
-        chunk = others[g0 : g0 + group]
-        walked = None
-        if len(chunk) >= 2:
-            # One continuous wavefront for the whole group: the
-            # streamed dirs fill removes the per-pair diagonal ramp
-            # (~2x at square pairs) that the monolithic fills pay
-            # (shared engine with align_batch).
-            from genomics_rs_tpu.models.aligner import (
-                stream_walk_group,
-            )
-
-            s1b = np.stack([s1e] * len(chunk))
-            s2b = np.stack(
-                [o.encoded(pad_to=Ln, pad_value=PAD_S2) for o in chunk]
-            )
-            msg = np.full(len(chunk), m, np.int32)
-            nsg = np.array([len(o) for o in chunk], np.int32)
-            walked = stream_walk_group(
-                s1b, s2b, msg, nsg, scores, False, interpret,
-                max_steps,
-            )
-        if walked is not None:
-            for mv_tb in walked[0]:
-                mv = mv_tb[::-1]  # forward order
-                if (mv == NO_MOVE).any():
-                    raise RuntimeError(
-                        "batched star walk emitted a gap"
-                    )
-                ops.append(_OP_BY_CODE[mv].tobytes().decode())
-            continue
-        fills = []
-        for o in chunk:
-            s2e = o.encoded(pad_to=Ln, pad_value=PAD_S2)
-            fills.append(
-                _fill(
-                    s1e, s2e, np.int32(m), np.int32(len(o)), scores,
-                    False, "pallas", packed_dirs=True,
-                    interpret=interpret,
-                )
-            )
-        if len(chunk) * per_pair <= LOCKSTEP_STACK_BUDGET:
-            codes = jnp.stack([r.dirs for r in fills])
-            start_i = np.full(len(chunk), m, np.int32)
-            start_j = np.array([len(o) for o in chunk], np.int32)
-            moves, counts, i_f, j_f, done = jax.device_get(
-                walk_batch(
-                    codes, start_i, start_j, scores, False,
-                    layout="diag16", max_steps=Lm + Ln + 1,
-                )
-            )
-            # A stop code mid-table also sets done — a GLOBAL walk
-            # must specifically reach (0, 0) (same check as the
-            # per-pair branch; a corrupt fill should fail here, not
-            # as a confusing consume-count assertion in _build_rows).
-            if not done.all() or (i_f != 0).any() or (j_f != 0).any():
-                bad = int(
-                    np.flatnonzero(
-                        ~done | (i_f != 0) | (j_f != 0)
-                    )[0]
-                )
-                raise RuntimeError(
-                    "batched star walk left the table at "
-                    f"({int(i_f[bad])}, {int(j_f[bad])})"
-                )
-            walked = [
-                moves[b, : int(counts[b])][::-1]
-                for b in range(len(chunk))
-            ]
-        else:
-            walked = []
-            for o, res in zip(chunk, fills):
-                codes1, i_f, j_f, done = device_walk(
-                    res.dirs, res.start_i, res.start_j, np.int32(0),
-                    max_steps=max_steps, interpret=interpret,
-                )
-                if not bool(done) or (int(i_f), int(j_f)) != (0, 0):
-                    raise RuntimeError(
-                        "star retrace left the table at "
-                        f"({int(i_f)}, {int(j_f)})"
-                    )
-                walked.append(np.asarray(codes1)[::-1])
-        for mv in walked:
-            if (mv == NO_MOVE).any():
-                raise RuntimeError("batched star walk emitted a gap")
-            ops.append(_OP_BY_CODE[mv].tobytes().decode())
-    return ops
 
 
 def _build_rows(
@@ -380,22 +263,18 @@ def center_star_msa(
     container: SequenceContainer,
     scores: Scores,
     engine: str = "auto",
-    interpret: bool = False,
     matrix=None,
 ) -> MSAResult:
     """Multiple alignment of every sequence in ``container``.
 
-    The pairwise score pass runs as one batched device dispatch
-    (``allpairs_scores``); the K-1 star alignments run through the
-    routed :class:`PairwiseAligner` (global mode).
+    The pairwise score pass runs as batched device dispatches
+    (``allpairs_scores``); the K-1 star alignments run through
+    :func:`~genomics_rs_tpu.models.aligner.align_batch` (global mode).
 
     ``matrix`` (a ``SubstMatrix``) switches to full-matrix scoring —
-    protein MSA: the score pass uses the batched matrix stream engine
-    and the K-1 star alignments fill in ONE 2-D packed stream-dirs
-    dispatch + one ``walk_many`` dispatch
-    (``models.aligner.matrix_align_batch``, round 5 — they ran
-    per-pair on the lax.scan engine before); gap costs still come
-    from ``scores.g``/``scores.h``.
+    protein MSA: the score pass uses the batched matrix engine
+    (``allpairs_matrix_scores``) and the star alignments the matrix
+    aligner; gap costs still come from ``scores.g``/``scores.h``.
     """
     from genomics_rs_tpu.parallel.allpairs import allpairs_scores
 
@@ -420,8 +299,7 @@ def center_star_msa(
             )
         else:
             ap = allpairs_scores(
-                container, scores, is_local=False, engine=engine,
-                interpret=interpret,
+                container, scores, is_local=False, engine=engine
             )
     # Symmetrize the lower triangle (diagonal self-scores excluded
     # from the center sum: constant offset per row ranking otherwise).
@@ -437,67 +315,17 @@ def center_star_msa(
     cseq = seqs[center]
     order = [k for k in range(len(seqs)) if k != center]
     others = [seqs[k] for k in order]
-    resolved = engine
-    if engine == "auto":
-        import jax
-
-        resolved = (
-            "pallas" if jax.default_backend() == "tpu" else "scan"
-        )
-    if matrix is not None:
-        # The per-pair matrix aligner (the batched path's fallback)
-        # runs on the scan engine.
-        resolved = "scan"
-    aligner = PairwiseAligner(
-        scores,
-        is_local=False,
-        engine=resolved,
-        interpret=interpret,
-        matrix=matrix,
-    )
-    # The batched path needs every pair's monolithic packed bitmap to
-    # be buildable. Its budget is larger than the aligner's
-    # monolithic-route budget: the star stage explicitly sub-batches
-    # so only one GROUP of bitmaps is live (~4 GB), and the transient
-    # is freed before the merge — a 30 kb corpus (472 MB/pair) stays
-    # on the fast path instead of paying 9 checkpointed aligns.
-    from genomics_rs_tpu.sequence import round_up as _ru
-
-    Lm_est = max(_ru(len(cseq), 128), 128)
-    Ln_est = max(
-        _ru(max((len(o) for o in others), default=1), 128), 128
-    )
-    est_dirs = (Lm_est + Ln_est + 1) * _ru(Lm_est + 1, 1024) // 4
     with PhaseTimer("msa").span("align the corpus to the center"):
-        if matrix is not None and others:
-            from genomics_rs_tpu.models.aligner import (
-                matrix_align_batch,
+        ops_list = [
+            _alignment_ops(al)
+            for al in align_batch(
+                [(cseq, o) for o in others],
+                scores,
+                is_local=False,
+                engine=engine,
+                matrix=matrix,
             )
-
-            ops_list = [
-                _alignment_ops(al)
-                for al in matrix_align_batch(
-                    [(cseq, o) for o in others],
-                    matrix,
-                    g=scores.g,
-                    h=scores.h,
-                    is_local=False,
-                    interpret=interpret,
-                )
-            ]
-        elif (
-            resolved == "pallas"
-            and matrix is None
-            and others
-            and est_dirs <= STAR_PAIR_DIRS_BUDGET
-        ):
-            ops_list = _star_ops_batched(
-                cseq, others, scores, interpret
-            )
-        else:
-            ops_list = [
-                _alignment_ops(aligner.align(cseq, o)) for o in others
-            ]
+        ]
         master, rows = _build_rows(
             cseq.sequence, [o.sequence for o in others], ops_list
         )

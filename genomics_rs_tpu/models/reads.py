@@ -2,15 +2,13 @@
 
 The reference aligns exactly one pair per process run
 (``/root/reference/src/main.rs:123-153``); the score-only read batches
-(``ops/gotoh_shortread.py``) extend that to thousands of pairs but
+(``parallel/batch.score_pairs``) extend that to thousands of pairs but
 return only (score, end). This driver completes the read-mapping use
 case: every read gets its full alignment — path, stats, CIGAR — with
 the whole O(m*n) fill AND the O(m+n) walks batched on device:
 
-* on TPU the fill is the short-read row-scan Pallas kernel with packed
-  2-bit direction words (``emit_dirs=True`` — 16 codes/int32 word,
-  streamed to HBM in row chunks); elsewhere a ``vmap``-ed wavefront
-  scan emits per-cell codes;
+* the fill is a ``vmap``-ed wavefront scan that emits one uint8
+  direction code per cell;
 * every read's traceback is walked in lockstep by ONE device dispatch
   (``ops/traceback_batch.walk_batch`` — a ``lax.scan`` whose state is
   (i, j, done) per read), so no bitmap ever reaches the host;
@@ -36,6 +34,7 @@ import numpy as np
 import jax
 
 from genomics_rs_tpu.config import Scores
+from genomics_rs_tpu.ops.engine import resolve_engine
 from genomics_rs_tpu.ops.gotoh_scan import gotoh_fill_scan
 from genomics_rs_tpu.ops.traceback import (
     AlignedSequences,
@@ -264,18 +263,9 @@ def encode_batch(
     return out
 
 
-#: Past this padded length the short-read kernel's VMEM scratch
-#: (~6 row-pane buffers of L2*4 KiB plus the streamed codes blocks)
-#: exceeds the per-core budget — mirror of
-#: ``parallel.batch.SHORTREAD_MAX_LEN``; longer reads fall back to the
-#: scan fill (or use the per-pair aligner, which routes by budget).
-_PALLAS_MAX_LEN = 256
-
-#: Resident direction-table budget per scan-engine round, bytes. The
-#: vmapped scan emits a per-cell diag-major table of
-#: ``(L1+L2+1) * (L1+1)`` bytes per read; rounds are sized to stay
-#: under this (the packed-dirs kernel path needs ~L1*L2/4 per read
-#: and keeps the full ``batch``).
+#: Resident direction-table budget per round, bytes. The vmapped scan
+#: emits a per-cell diag-major table of ``(L1+L2+1) * (L1+1)`` bytes
+#: per read; rounds are sized to stay under this.
 _SCAN_DIRS_BUDGET = 2 << 30
 
 
@@ -290,7 +280,6 @@ def align_reads(
     with_cigars: bool = False,
     both_strands: bool = False,
     with_mapinfo: bool = False,
-    interpret: bool = False,
 ):
     """Full alignments for query[i] vs ref[i], batched on device.
 
@@ -299,12 +288,10 @@ def align_reads(
     software-pipelined one round deep: the next round's device work is
     dispatched before the previous round's results are transferred and
     classified, overlapping host classification with device compute
-    (JAX dispatch is async; the scan-engine round size is halved so
-    two resident direction tables stay within the memory budget).
-    ``engine`` picks the fill
-    ("pallas" = short-read kernel with packed dirs, "scan" = vmapped
-    wavefront oracle, "auto" = pallas on TPU for reads within the
-    kernel's VMEM budget, scan otherwise). ``with_paths=False`` skips
+    (JAX dispatch is async; the round size is halved so two resident
+    direction tables stay within the memory budget). ``engine`` is
+    resolved by :func:`~genomics_rs_tpu.ops.engine.resolve_engine`.
+    ``with_paths=False`` skips
     building each result's per-move ``alignment`` list — the remaining
     Python cost then scales with reads, not moves; pair it with
     ``with_cigars=True``, which returns ``(aligned, cigars)`` using
@@ -334,20 +321,13 @@ def align_reads(
         raise ValueError(
             f"query/ref count mismatch: {len(queries)} vs {len(refs)}"
         )
-    if engine not in ("auto", "pallas", "scan"):
-        raise ValueError(f"unknown engine {engine!r}")
+    resolve_engine(engine)
     L1 = max(round_up(max((len(s) for s in queries), default=1), 128), 128)
     L2 = max(round_up(max((len(s) for s in refs), default=1), 128), 128)
     max_steps = L1 + L2 + 1
-    use_pallas = engine == "pallas" or (
-        engine == "auto"
-        and jax.default_backend() == "tpu"
-        and max(L1, L2) <= _PALLAS_MAX_LEN
-    )
-    if not use_pallas:
-        # Bound the resident per-round direction-table memory.
-        per_read = (L1 + L2 + 1) * (L1 + 1)
-        batch = max(16, min(batch, _SCAN_DIRS_BUDGET // per_read))
+    # Bound the resident per-round direction-table memory.
+    per_read = (L1 + L2 + 1) * (L1 + 1)
+    batch = max(16, min(batch, _SCAN_DIRS_BUDGET // per_read))
     if both_strands:
         # The device batch doubles (forward + revcomp rows); halve the
         # round size so per-round memory stays within the same budget.
@@ -356,9 +336,8 @@ def align_reads(
     # walk are dispatched (async) before round k's results are pulled
     # home, so host-side classification overlaps device compute. Two
     # rounds' direction tables are then resident at once — halve the
-    # scan-engine round so the budget still holds.
-    pipelined = len(queries) > batch
-    if pipelined and not use_pallas:
+    # round so the budget still holds.
+    if len(queries) > batch:
         batch = max(16, batch // 2)
 
     out: list[AlignedSequences] = []
@@ -367,30 +346,11 @@ def align_reads(
     all_mapinfo: list[tuple[int, int, int, int]] = []
 
     def _fill_and_walk(s1x, s2x, msx, nsx):
-        if use_pallas:
-            from genomics_rs_tpu.ops.gotoh_shortread import (
-                gotoh_scores_shortread,
-            )
-
-            sc, si, sj, codes = gotoh_scores_shortread(
-                s1x,
-                s2x,
-                msx,
-                nsx,
-                scores,
-                is_local,
-                emit_dirs=True,
-                interpret=interpret,
-            )
-            layout = "rows16"
-        else:
-            codes, sc, si, sj = _fill_batch(
-                s1x, s2x, msx, nsx, scores, is_local
-            )
-            layout = "diag"
+        codes, sc, si, sj = _fill_batch(
+            s1x, s2x, msx, nsx, scores, is_local
+        )
         walked = walk_batch(
-            codes, si, sj, scores, is_local, layout, max_steps,
-            packed_moves=True,
+            codes, si, sj, "diag", max_steps, packed_moves=True
         )
         return walked + (sc, si, sj)
 

@@ -1,10 +1,9 @@
-"""Device-side compute ops: Gotoh DP fill kernels, traceback, BWT.
+"""Device-side compute ops: Gotoh DP fills, traceback, BWT.
 
-Pallas kernels (``gotoh_pallas``: single-pair fill, batched score,
-streamed-boundary tile, blocked long-pair batch;
-``gotoh_segmented``: 8-pairs-per-pane mid-length batch;
-``gotoh_shortread``: row-scan read batches) are imported lazily by
-their users to keep CPU-only imports light.
+The fills are plain JAX (``gotoh_scan``: anti-diagonal ``lax.scan``;
+``gotoh_tile``: its boundary-injected tile twin; ``gotoh_matrix``:
+full substitution matrices) compiled by XLA; ``engine`` resolves the
+``engine=`` names every driver takes.
 """
 
 from genomics_rs_tpu.ops.bwt_device import bwt_device, suffix_array

@@ -1,27 +1,25 @@
-"""Batched full-matrix (protein) Gotoh scoring — MXU + wavefront scan.
+"""Batched full-matrix (protein) Gotoh scoring: matmul + wavefront scan.
 
 Full substitution matrices (BLOSUM etc.) break the two-value
-``where(match, sm, sx)`` trick every DP kernel here uses: the score of
-a cell is an arbitrary ``M[a, b]`` lookup, and per-lane table gathers
-are not a VPU operation. The TPU-native formulation splits the work by
-hardware unit:
+``where(match, sm, sx)`` trick the DNA fills use: the score of a cell
+is an arbitrary ``M[a, b]`` lookup. The batched formulation splits the
+work in three:
 
-1. **MXU**: the whole substitution plane of a pair is two matmuls —
-   ``subs = onehot(s1) @ (M @ onehot(s2)^T)`` — exact in bf16 because
-   every output element is a one-hot selection of a small-int matrix
-   entry (no true accumulation ever happens). ~A multiply-accumulates
-   per DP cell on the unit built for exactly that.
+1. **Substitution planes**: the whole substitution plane of a pair is
+   two matmuls — ``subs = onehot(s1) @ (M @ onehot(s2)^T)`` — with
+   bf16 operands and float32 accumulation. Every output element has
+   exactly one nonzero product (a one-hot selection of a small-integer
+   matrix entry), so the result is exact for ``|M| <= 256`` whatever
+   precision the backend's matmul uses (guarded in
+   :func:`gotoh_scores_matrix`).
 2. **Relayout**: the (m, n) plane shears once into diagonal-major
-   ``sheared[k, l] = subs[l-1, k-l-1]`` (one strided-slice copy per
-   lane row, batched), so the wavefront consumes it sequentially.
-3. **VPU**: the anti-diagonal Gotoh recurrence (identical semantics to
-   ``gotoh_scan.gotoh_fill_scan`` — reference quirks included) runs as
-   one ``lax.scan`` over ALL pairs at once, with each step's
-   substitution scores arriving as a scan ``xs`` slice — the DP body
-   does NO substitution work at all.
+   ``sheared[k, l] = subs[l-1, k-l-1]`` (bulk reshape copies).
+3. **Wavefront**: the anti-diagonal Gotoh recurrence (identical
+   semantics to ``gotoh_scan.gotoh_fill_scan`` — reference quirks
+   included) runs as one ``lax.scan`` over ALL pairs at once, with
+   each step's substitution scores arriving as a scan ``xs`` slice.
 
-This is the scoring engine behind protein (matrix-mode) batches; the
-reference has no analog (two-score model only,
+The reference has no analog (two-score model only,
 ``/root/reference/src/alignment/algo.rs:245-248``). Cross-checked
 against the scan oracle's ``subst_lut`` gather path and the C++ LUT
 oracle (``native/gotoh_cpu.cpp::gotoh_score_cpu_subst``).
@@ -35,26 +33,8 @@ import numpy as np
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from genomics_rs_tpu.ops.gotoh_scan import INT_MIN, NEG_INF
-
-ROWS = 8  # pairs per register pane (one per sublane row)
-
-#: batches at least this large auto-route to the 2-D packed
-#: continuous-stream engine (``gotoh_matrix_stream``): below it the
-#: stream's chain setup doesn't amortize over the segmented kernel.
-STREAM_MIN_B = 8
-
-#: batches at least this large route through the GROUPED stream call
-#: (sub-batches scanned inside one jit: single dispatch, one group's
-#: peak stream memory).
-STREAM_GROUPED_MIN_B = 2048
-
-
-def _round_up(x: int, m: int) -> int:
-    return -(-x // m) * m
 
 
 def _alpha_code(matrix) -> np.ndarray:
@@ -85,7 +65,7 @@ def _ext_matrix(matrix) -> np.ndarray:
 def _sheared_subs(s1b, s2b, code, mat, A: int):
     """(K, B, Mp) int32 diagonal-major substitution scores.
 
-    MXU substitution planes + skew-by-reshape; see module docstring.
+    Matmul substitution planes + skew-by-reshape; see module docstring.
     One tiny gather per CHARACTER (not per cell) maps bytes to
     alphabet codes; the plane itself is two exact bf16 matmuls.
     Out-of-range positions read zero padding or a neighbouring row's
@@ -106,10 +86,17 @@ def _sheared_subs(s1b, s2b, code, mat, A: int):
     oh2 = (
         c2[:, :, None] == jnp.arange(A, dtype=jnp.int32)[None, None, :]
     ).astype(jnp.bfloat16)  # (B, Ln, A)
+    # One nonzero product per output element: exact in float32
+    # accumulation (and in the bf16 re-cast, |M| <= 256).
     rows = jnp.einsum(
-        "bma,ac->bmc", oh1, mat.astype(jnp.bfloat16)
-    )  # (B, Lm, A): row of M for each s1 char
-    subs = jnp.einsum("bmc,bnc->bmn", rows, oh2).astype(jnp.int32)
+        "bma,ac->bmc",
+        oh1,
+        mat.astype(jnp.bfloat16),
+        preferred_element_type=jnp.float32,
+    ).astype(jnp.bfloat16)  # (B, Lm, A): row of M for each s1 char
+    subs = jnp.einsum(
+        "bmc,bnc->bmn", rows, oh2, preferred_element_type=jnp.float32
+    ).astype(jnp.int32)
 
     # Shear: sheared[k, b, l] = subs[b, l-1, k-l-1] via pad rows to
     # width Ln+Mp, flatten, truncate one element per row, reshape —
@@ -125,93 +112,6 @@ def _sheared_subs(s1b, s2b, code, mat, A: int):
     T = jnp.transpose(Q, (2, 0, 1))  # (Wp-1, B, Lm): T[c, b, r]
     # sheared[k, b, l] = T[k-2, b, l-1]: two leading diagonals and one
     # leading lane of padding, then trim/pad to (K, B, Mp).
-    return jnp.pad(
-        T,
-        ((2, max(0, K - (Wp - 1) - 2)), (0, 0), (1, 0)),
-    )[:K]
-
-
-def _alpha_bytes(matrix):
-    """(alphabet byte values (A0,) uint8, fallback index, ext dim A)
-    for the byte-compare one-hot path (no 256-entry gather)."""
-    A0 = len(matrix.alphabet)
-    fallback = (
-        matrix.alphabet.index("X") if "X" in matrix.alphabet else A0
-    )
-    ab = np.frombuffer(
-        matrix.alphabet.encode("latin-1"), dtype=np.uint8
-    ).copy()
-    A = A0 if "X" in matrix.alphabet else A0 + 1
-    return ab, fallback, A
-
-
-def _onehot_bytes(sb, lens, ab, fallback: int, A: int):
-    """(B, L, A) bf16 one-hot straight from ASCII bytes.
-
-    Compares bytes against the alphabet's byte values instead of
-    gathering through a 256-entry code table — the round-5 HLO showed
-    the two per-call gathers costing more than the MXU matmuls they
-    fed. Out-of-alphabet bytes one-hot to the fallback (wildcard)
-    column; positions at or beyond the true length one-hot to NOTHING
-    (the plane masking trick of ``_sheared_subs8``).
-    """
-    L = sb.shape[1]
-    eq = sb[:, :, None] == jnp.asarray(ab)[None, None, :]
-    known = jnp.any(eq, axis=-1)
-    A0 = ab.shape[0]
-    if A0 < A:
-        eq = jnp.pad(eq, ((0, 0), (0, 0), (0, A - A0)))
-    fb = (~known)[:, :, None] & (
-        jnp.arange(A, dtype=jnp.int32)[None, None, :] == fallback
-    )
-    valid = (
-        jnp.arange(L, dtype=jnp.int32)[None, :] < lens[:, None]
-    )[:, :, None]
-    return ((eq | fb) & valid).astype(jnp.bfloat16)
-
-
-def _codes_bytes(sb, lens, ab, fallback: int):
-    """(B, L) int8 alphabet codes straight from ASCII bytes: unknown
-    bytes -> the wildcard fallback, positions at or beyond the true
-    length -> -1 (a code that one-hots to nothing downstream)."""
-    L = sb.shape[1]
-    eq = sb[:, :, None] == jnp.asarray(ab)[None, None, :]
-    c = jnp.where(
-        jnp.any(eq, axis=-1), jnp.argmax(eq, axis=-1), fallback
-    )
-    valid = jnp.arange(L, dtype=jnp.int32)[None, :] < lens[:, None]
-    return jnp.where(valid, c, -1).astype(jnp.int8)
-
-
-def _sheared_subs8(s1b, s2b, ms, ns, ab, mat, A: int, fallback: int):
-    """(K, B, Mp) int8 diagonal-major substitution scores, ZERO at
-    every invalid cell (row > m, col > n, boundary row/col).
-
-    The int8 twin of :func:`_sheared_subs` for the |M| <= 127 engines
-    (segmented + stream): the true-length mask is folded into the
-    one-hot encodings (an out-of-range position one-hots to nothing,
-    so its plane entry is exactly 0 — no separate mask pass), the
-    one-hots come from byte compares (no code-table gather), and the
-    whole skew chain runs at int8 width.
-    """
-    B, Lm = s1b.shape
-    _, Ln = s2b.shape
-    Mp = Lm + 1
-    K = Lm + Ln + 1
-    oh1 = _onehot_bytes(s1b, ms, ab, fallback, A)
-    oh2 = _onehot_bytes(s2b, ns, ab, fallback, A)
-    rows = jnp.einsum("bma,ac->bmc", oh1, mat.astype(jnp.bfloat16))
-    subs8 = jnp.einsum("bmc,bnc->bmn", rows, oh2).astype(jnp.int8)
-
-    Wp = Ln + Mp
-    P = jnp.concatenate(
-        [subs8, jnp.zeros((B, Lm, Wp - Ln), dtype=jnp.int8)], axis=2
-    )
-    Q = (
-        P.reshape(B, Lm * Wp)[:, : Lm * (Wp - 1)]
-        .reshape(B, Lm, Wp - 1)
-    )
-    T = jnp.transpose(Q, (2, 0, 1))  # (Wp-1, B, Lm)
     return jnp.pad(
         T,
         ((2, max(0, K - (Wp - 1) - 2)), (0, 0), (1, 0)),
@@ -245,7 +145,7 @@ def _matrix_scores_call(
 
     sheared = _sheared_subs(s1b, s2b, code, mat, A)
 
-    # --- 3. VPU: batched wavefront ----------------------------------
+    # Batched wavefront.
     iv = jnp.arange(Mp, dtype=jnp.int32)[None, :]  # (1, Mp)
     msr = jnp.asarray(ms, jnp.int32)[:, None]
     nsr = jnp.asarray(ns, jnp.int32)[:, None]
@@ -318,8 +218,8 @@ def _matrix_scores_call(
                 jnp.where(better, j_cand, bj),
             )
         else:
-            # Masked max instead of take_along_axis: a per-step gather
-            # is the slowest op on the VPU; select+reduce is not.
+            # Masked max instead of take_along_axis: select+reduce
+            # fuses into the step's elementwise body.
             at_mn = jnp.max(
                 jnp.where(iv == msr, cm, int_min), axis=1
             )
@@ -351,270 +251,6 @@ def _matrix_scores_call(
     return final, jnp.asarray(ms, jnp.int32), jnp.asarray(ns, jnp.int32)
 
 
-def _kernel_matrix_seg(
-    scalars,  # SMEM int32 (Bp, 8): m, n, g, h per pair (cols 0-3)
-    subs_ref,  # VMEM int8 (1, chunk, 8, C): this group's subs stream
-    bv_ref,  # out (1, 8, C)
-    bk_ref,  # out (1, 8, C)
-    fin_ref,  # out (1, 8, C)
-    Ip,
-    Sp,
-    Dp,
-    Qp,
-    shM,
-    bv_s,
-    bk_s,
-    fin_s,
-    *,
-    K: int,
-    chunk: int,
-    C: int,
-    is_local: bool,
-):
-    """Segmented-layout wavefront with a precomputed subs stream.
-
-    Identical geometry and semantics to ``gotoh_segmented._kernel_seg``
-    (pair g in sublane row g, lane l = DP row i, j = k - l), but the
-    substitution score arrives per step as an int8 VMEM pane instead
-    of being computed from characters — which is what makes arbitrary
-    substitution matrices kernel-representable at all.
-    """
-    b_id = pl.program_id(0)
-    g_id = pl.program_id(1)
-    base = b_id * ROWS
-
-    gg = scalars[base, 2]
-    hh = scalars[base, 3]
-    hg = hh + gg
-
-    col_idx = jax.lax.broadcasted_iota(jnp.int32, (ROWS, C), 1)
-    neg = jnp.int32(NEG_INF)
-    int_min = jnp.int32(INT_MIN)
-
-    mcol = jnp.stack(
-        [scalars[base + g, 0] for g in range(ROWS)]
-    ).reshape(ROWS, 1)
-    ncol = jnp.stack(
-        [scalars[base + g, 1] for g in range(ROWS)]
-    ).reshape(ROWS, 1)
-
-    row0_mask = col_idx == 0
-    nz_mask = col_idx > 0
-    Dcol = hh + col_idx * gg
-    lem_mask = col_idx <= mcol
-    eqm_mask = col_idx == mcol
-    mncol = mcol + ncol
-
-    @pl.when(g_id == 0)
-    def _init():
-        full_neg = jnp.full((ROWS, C), neg, dtype=jnp.int32)
-        Ip[:] = full_neg
-        Sp[:] = full_neg
-        Dp[:] = full_neg
-        Qp[:] = full_neg
-        shM[:] = full_neg
-        if is_local:
-            bv_s[:] = jnp.full((ROWS, C), int_min, dtype=jnp.int32)
-            bk_s[:] = jnp.zeros((ROWS, C), dtype=jnp.int32)
-        fin_s[:] = jnp.full((ROWS, C), int_min, dtype=jnp.int32)
-
-    zero_lane = jnp.int32(0) if is_local else neg
-
-    def body(t, _):
-        k = g_id * chunk + t
-
-        @pl.when(k < K)
-        def _step():
-            sub = subs_ref[0, t].astype(jnp.int32)
-            shQ = jnp.where(row0_mask, neg, pltpu.roll(Qp[:], 1, axis=1))
-            shD = jnp.where(row0_mask, neg, pltpu.roll(Dp[:], 1, axis=1))
-
-            if is_local:
-                Inew = jnp.maximum(
-                    jnp.maximum(Ip[:] + gg, Sp[:] + hg), zero_lane
-                )
-                Dnew = jnp.maximum(
-                    jnp.maximum(shQ + hg, shD + gg), zero_lane
-                )
-                Snew = sub + jnp.maximum(shM[:], zero_lane)
-            else:
-                # Padded lanes drift unclamped; they only feed other
-                # padded lanes and every output read is masked — see
-                # the headroom guard in the wrapper.
-                Inew = jnp.maximum(Ip[:] + gg, Sp[:] + hg)
-                Dnew = jnp.maximum(shQ + hg, shD + gg)
-                Snew = sub + shM[:]
-
-            # Boundaries (lane l = DP row i of its pair; j = k - l) —
-            # the reference's algo.rs:193-220 conditions.
-            eq = col_idx == k
-            gt = col_idx > k
-            col0 = eq & nz_mask
-            dead_IS = col0 | gt
-            topI_s = jnp.where(k == 0, 0, hh + k * gg)
-            topSD_s = jnp.where(k == 0, 0, neg)
-            Inew = jnp.where(row0_mask, topI_s, Inew)
-            Inew = jnp.where(dead_IS, neg, Inew)
-            Snew = jnp.where(row0_mask, topSD_s, Snew)
-            Snew = jnp.where(dead_IS, neg, Snew)
-            Dnew = jnp.where(col0, Dcol, Dnew)
-            Dnew = jnp.where(row0_mask, topSD_s, Dnew)
-            Dnew = jnp.where(gt, neg, Dnew)
-
-            Qnew = jnp.maximum(Inew, Snew)
-            if is_local:
-                cm = jnp.maximum(jnp.maximum(Qnew, Dnew), 0)
-                in_true = lem_mask & (~gt) & (col_idx >= k - ncol)
-                val = jnp.where(in_true, cm, int_min)
-                upd = val >= bv_s[:]
-                bv_s[:] = jnp.where(upd, val, bv_s[:])
-                bk_s[:] = jnp.where(upd, k, bk_s[:])
-            else:
-                probe = eqm_mask & (k == mncol)
-                fin_s[:] = jnp.where(
-                    probe, jnp.maximum(Qnew, Dnew), fin_s[:]
-                )
-
-            shM[:] = jnp.maximum(shQ, shD)
-            Ip[:] = Inew
-            Sp[:] = jnp.maximum(Snew, Dnew)
-            Dp[:] = Dnew
-            Qp[:] = Qnew
-
-        return 0
-
-    jax.lax.fori_loop(0, chunk, body, 0)
-
-    @pl.when(g_id == pl.num_programs(1) - 1)
-    def _finalize():
-        if is_local:
-            bv_ref[0] = bv_s[:]
-            bk_ref[0] = bk_s[:]
-        else:
-            bv_ref[0] = jnp.zeros((ROWS, C), dtype=jnp.int32)
-            bk_ref[0] = jnp.zeros((ROWS, C), dtype=jnp.int32)
-        fin_ref[0] = fin_s[:]
-
-
-@functools.partial(
-    jax.jit, static_argnames=("is_local", "A", "fallback", "interpret")
-)
-def _matrix_seg_call(
-    s1b,
-    s2b,
-    ms,
-    ns,
-    g,
-    h,
-    ab,
-    mat,
-    is_local: bool,
-    A: int,
-    fallback: int,
-    interpret: bool = False,
-):
-    B, Lm = s1b.shape
-    _, Ln = s2b.shape
-    Mp = Lm + 1
-    K = Lm + Ln + 1
-    C = max(_round_up(Mp, 128), 128)
-    chunk = 256
-    Kp = _round_up(K, chunk)
-
-    # Pad the batch to a pane multiple with trivial pairs FIRST so the
-    # subs planes of the pad pairs exist too (masked by m = n = 1).
-    Bp = _round_up(max(B, 1), ROWS)
-    if Bp != B:
-        pad = Bp - B
-        s1b = jnp.concatenate(
-            [s1b, jnp.full((pad, Lm), 0xFE, dtype=s1b.dtype)]
-        )
-        s2b = jnp.concatenate(
-            [s2b, jnp.full((pad, Ln), 0xFF, dtype=s2b.dtype)]
-        )
-        ms = jnp.concatenate(
-            [jnp.asarray(ms, jnp.int32), jnp.ones(pad, jnp.int32)]
-        )
-        ns = jnp.concatenate(
-            [jnp.asarray(ns, jnp.int32), jnp.ones(pad, jnp.int32)]
-        )
-    ms = jnp.asarray(ms, jnp.int32)
-    ns = jnp.asarray(ns, jnp.int32)
-    Bg = Bp // ROWS
-
-    # (K, Bp, Mp) int8 -> (Bg, Kp, 8, C) int8 stream (the wrapper
-    # guards |matrix| <= 127 before routing here); built at int8
-    # width with the true-length mask folded into the one-hots
-    # (round 5: the int32 mask-after build cost 57 ms at 1024x383 —
-    # more than the DP kernel it feeds).
-    sheared = _sheared_subs8(s1b, s2b, ms, ns, ab, mat, A, fallback)
-    sheared = jnp.pad(sheared, ((0, Kp - K), (0, 0), (0, C - Mp)))
-    stream = jnp.transpose(
-        jnp.transpose(sheared, (1, 0, 2)).reshape(Bg, ROWS, Kp, C),
-        (0, 2, 1, 3),
-    )  # (Bg, Kp, 8, C)
-
-    scalars = jnp.stack(
-        [
-            ms,
-            ns,
-            jnp.full((Bp,), g, jnp.int32),
-            jnp.full((Bp,), h, jnp.int32),
-            jnp.zeros((Bp,), jnp.int32),
-            jnp.zeros((Bp,), jnp.int32),
-            jnp.zeros((Bp,), jnp.int32),
-            jnp.zeros((Bp,), jnp.int32),
-        ],
-        axis=1,
-    )
-
-    pane_out = pl.BlockSpec(
-        (1, ROWS, C), lambda b, g, s: (b, 0, 0), memory_space=pltpu.VMEM
-    )
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(Bg, Kp // chunk),
-        in_specs=[
-            pl.BlockSpec(
-                (1, chunk, ROWS, C),
-                lambda b, g, s: (b, g, 0, 0),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-        out_specs=(pane_out, pane_out, pane_out),
-        scratch_shapes=[pltpu.VMEM((ROWS, C), jnp.int32)] * 8,
-    )
-    kernel = functools.partial(
-        _kernel_matrix_seg, K=K, chunk=chunk, C=C, is_local=is_local
-    )
-    bv, bk, fin = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=tuple(
-            [jax.ShapeDtypeStruct((Bg, ROWS, C), jnp.int32)] * 3
-        ),
-        interpret=interpret,
-    )(scalars, stream)
-
-    col = jnp.arange(C, dtype=jnp.int32)[None, :]
-    finf = fin.reshape(Bp, C)
-    if is_local:
-        bvf = bv.reshape(Bp, C)
-        bkf = bk.reshape(Bp, C)
-        vmax = jnp.max(bvf, axis=1, keepdims=True)
-        i_best = jnp.max(jnp.where(bvf == vmax, col, -1), axis=1)
-        k_best = jnp.max(
-            jnp.where((bvf == vmax) & (col == i_best[:, None]), bkf, -1),
-            axis=1,
-        )
-        return (
-            vmax[:B, 0],
-            i_best[:B],
-            (k_best - i_best)[:B],
-        )
-    return jnp.max(finf, axis=1)[:B], ms[:B], ns[:B]
-
-
 def gotoh_scores_matrix(
     s1b,
     s2b,
@@ -624,8 +260,6 @@ def gotoh_scores_matrix(
     g: int,
     h: int,
     is_local: bool = False,
-    engine: str = "auto",
-    interpret: bool = False,
 ):
     """Score a batch of pairs under a full substitution matrix.
 
@@ -636,12 +270,6 @@ def gotoh_scores_matrix(
       matrix: a ``SubstMatrix`` (e.g. ``subst.blosum62()``).
       g, h: affine gap extension / open costs.
       is_local: Smith-Waterman (True) / Needleman-Wunsch.
-      engine: "stream" (2-D packed continuous-stream kernel,
-        ``gotoh_matrix_stream`` — the batch-throughput engine),
-        "pallas" (segmented kernel + int8 subs stream), "scan"
-        (the lax.scan twin — also the interpret-free CPU path), or
-        "auto" (stream on TPU for real batches, else pallas/scan).
-      interpret: run the pallas kernel in interpret mode (CPU tests).
 
     Returns ``(score, start_i, start_j)`` of shape (B,) with the
     reference's exact local keep-last argmax semantics.
@@ -663,90 +291,14 @@ def gotoh_scores_matrix(
         )
         warn_unknown_bytes(matrix, live, where="matrix batch")
     if int(np.abs(ext).max()) > 256:
-        # Both engines build the substitution planes with bf16
-        # one-hot matmuls; bf16 integers are exact only to 256 —
-        # larger entries would be silently rounded. Real matrices
-        # (BLOSUM/PAM families) are far below this.
+        # The substitution planes are one-hot matmuls over bf16
+        # operands; bf16 integers are exact only to 256 — larger
+        # entries would be silently rounded. Real matrices (BLOSUM/PAM
+        # families) are far below this.
         raise ValueError(
             "substitution-matrix entries must satisfy |v| <= 256 "
             f"(bf16-exact one-hot selection); got max |v| = "
             f"{int(np.abs(ext).max())}"
-        )
-    if engine == "auto":
-        on_tpu = jax.default_backend() == "tpu"
-        fits_i8 = int(np.abs(ext).max()) <= 127
-        B = int(np.shape(s1b)[0])
-        if (on_tpu or interpret) and fits_i8 and B >= STREAM_MIN_B:
-            engine = "stream"
-        else:
-            engine = (
-                "pallas" if ((on_tpu or interpret) and fits_i8) else "scan"
-            )
-    if engine == "stream":
-        from genomics_rs_tpu.ops.gotoh_matrix_stream import (
-            gotoh_scores_matrix_stream,
-            gotoh_scores_matrix_stream_grouped,
-        )
-
-        out = None
-        if int(np.shape(s1b)[0]) >= STREAM_GROUPED_MIN_B:
-            # Large corpora: sub-batches scanned inside ONE jit —
-            # single dispatch, one group's peak stream memory (the
-            # 1e10 cells/s protein path).
-            out = gotoh_scores_matrix_stream_grouped(
-                s1b,
-                s2b,
-                ms,
-                ns,
-                matrix,
-                g=int(g),
-                h=int(h),
-                is_local=is_local,
-                interpret=interpret,
-            )
-        if out is None:
-            out = gotoh_scores_matrix_stream(
-                s1b,
-                s2b,
-                ms,
-                ns,
-                matrix,
-                g=int(g),
-                h=int(h),
-                is_local=is_local,
-                interpret=interpret,
-            )
-        if out is not None:
-            return out
-        engine = "pallas" if int(np.abs(ext).max()) <= 127 else "scan"
-    if engine == "pallas":
-        if int(np.abs(ext).max()) > 127:
-            raise ValueError(
-                "pallas matrix engine streams int8 substitution "
-                f"scores; |matrix| max {int(np.abs(ext).max())} > 127"
-            )
-        # Global-mode padded lanes drift unclamped (segmented-kernel
-        # inheritance): bound the int32 headroom like every other
-        # wrapper.
-        K = s1b.shape[1] + s2b.shape[1] + 1
-        drift = 127 + abs(int(g)) + abs(int(h)) + 1
-        if K * drift >= 1 << 30:
-            engine = "scan"
-    if engine == "pallas":
-        ab, fallback, _ = _alpha_bytes(matrix)
-        return _matrix_seg_call(
-            jnp.asarray(s1b),
-            jnp.asarray(s2b),
-            jnp.asarray(ms, jnp.int32),
-            jnp.asarray(ns, jnp.int32),
-            int(g),
-            int(h),
-            jnp.asarray(ab),
-            jnp.asarray(ext),
-            is_local,
-            A=A,
-            fallback=fallback,
-            interpret=interpret,
         )
     return _matrix_scores_call(
         jnp.asarray(s1b),

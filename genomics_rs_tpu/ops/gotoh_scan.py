@@ -64,6 +64,30 @@ DIR_DEL = 2
 DIR_STOP = 3
 
 
+#: Direction codes per packed int32 word (2 bits each).
+PACK = 16
+
+
+def pack_dirs(dirs: jax.Array) -> jax.Array:
+    """Pack diag-major uint8 codes ``(K, Mp)`` into int32 words
+    ``(ceil(K/16), Mp)``: the code of diagonal k, lane i sits in bits
+    ``2*(k % 16)`` of word ``[k // 16, i]`` — the layout the device
+    walkers read (``traceback_device.walk_block``,
+    ``traceback_batch.walk_batch(layout="diag16")``). Padding
+    diagonals hold code 0 and are never reached by a walk."""
+    K, Mp = dirs.shape
+    Kp = -(-K // PACK) * PACK
+    d = jnp.pad(dirs.astype(jnp.uint32), ((0, Kp - K), (0, 0)))
+    shifts = (2 * jnp.arange(PACK, dtype=jnp.uint32))[None, :, None]
+    # The 2-bit fields are disjoint, so the sum is a bitwise OR.
+    words = jnp.sum(
+        d.reshape(Kp // PACK, PACK, Mp) << shifts,
+        axis=1,
+        dtype=jnp.uint32,
+    )
+    return jax.lax.bitcast_convert_type(words, jnp.int32)
+
+
 class FillResult(NamedTuple):
     """Output of a wavefront fill.
 

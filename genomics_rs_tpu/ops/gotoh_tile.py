@@ -11,8 +11,8 @@ This is the composable unit behind:
   ``seq`` axis with ``ppermute`` halo exchange of boundary rows
   (``parallel/longseq.py``), the DP analog of context parallelism
   (SURVEY §5);
-* Myers-Miller / Hirschberg linear-space traceback (forward and
-  reverse half-fills share this kernel).
+* the windowed traceback refills of the sharded aligner
+  (``longseq.align_sharded``), with ``emit_dirs=True``.
 
 Semantics (recurrence, zero-floor placement, tie-breaks) match the
 full-table oracle ``gotoh_scan.py`` — which mirrors the reference
@@ -27,7 +27,16 @@ import jax
 import jax.numpy as jnp
 
 from genomics_rs_tpu.config import Scores
-from genomics_rs_tpu.ops.gotoh_scan import INT_MIN, NEG_INF, vary
+from genomics_rs_tpu.ops.gotoh_scan import (
+    DIR_DEL,
+    DIR_INS,
+    DIR_STOP,
+    DIR_SUB,
+    INT_MIN,
+    NEG_INF,
+    pack_dirs,
+    vary,
+)
 from genomics_rs_tpu.ops.subst import (
     encode_chars,
     kimura_active,
@@ -47,12 +56,17 @@ class TileResult(NamedTuple):
             tie-break (larger value, then larger i, then larger j).
     at_mn:  int32 — cell max at global (m, n) if it lies in this tile,
             else INT_MIN.
+    dirs:   int32 (ceil((R+B+1)/16), R+1) packed direction codes of
+            every tile cell, boundaries included (``gotoh_scan.
+            pack_dirs`` layout; lane li = row i0+li, diagonal li+j for
+            tile column j) when ``emit_dirs``, else None.
     """
 
     bottom: jax.Array
     right: jax.Array
     best: tuple[jax.Array, jax.Array, jax.Array]
     at_mn: jax.Array
+    dirs: jax.Array | None = None
 
 
 def _shift_down(x: jax.Array, fill) -> jax.Array:
@@ -71,6 +85,7 @@ def tile_fill(
     m: jax.Array,
     n: jax.Array,
     vma_axes: tuple[str, ...] = (),
+    emit_dirs: bool = False,
 ) -> TileResult:
     """Fill tile rows [i0+1, i0+R] x cols [j0+1, j0+B] of the table.
 
@@ -86,6 +101,11 @@ def tile_fill(
       m, n: true global lengths for masking / (m, n) probing.
       vma_axes: mesh axes this fill varies over inside a ``shard_map``
         (pcasts the scan inits so ``check_vma`` can stay enabled).
+      emit_dirs: static — also return the tile's packed direction
+        codes (``TileResult.dirs``) for a traceback walk; the codes of
+        the boundary cells follow from the injected boundary values,
+        so a walk can cross the tile's top row exactly as in the full
+        table.
     """
     R = s1t.shape[0]
     B = s2t.shape[0]
@@ -183,6 +203,19 @@ def tile_fill(
             jnp.take(Snew, jnp.clip(k - B, 0, R)),
             jnp.take(Dnew, jnp.clip(k - B, 0, R)),
         )
+        if emit_dirs:
+            # Retrace code with the reference's S > I > D arm order,
+            # as in gotoh_fill_scan.
+            code = jnp.where(
+                cm == Snew,
+                DIR_SUB,
+                jnp.where(
+                    cm == Inew,
+                    DIR_INS,
+                    jnp.where(cm == Dnew, DIR_DEL, DIR_STOP),
+                ),
+            ).astype(jnp.uint8)
+            ys = ys + (code,)
         carry = (Inew, Snew, Dnew, I1, S1, D1, bv, bi, bk, at_mn)
         return carry, ys
 
@@ -203,7 +236,7 @@ def tile_fill(
     carry, ys = jax.lax.scan(step, init, jnp.arange(K, dtype=jnp.int32))
     bv, bi, bk, at_mn = carry[6], carry[7], carry[8], carry[9]
 
-    bI, bS, bD, rI, rS, rD = ys
+    bI, bS, bD, rI, rS, rD = ys[:6]
     bottom = jnp.stack(
         [bI[R : R + B + 1], bS[R : R + B + 1], bD[R : R + B + 1]]
     )
@@ -223,6 +256,7 @@ def tile_fill(
         right=right,
         best=(vmax, i_best, j_best),
         at_mn=at_mn,
+        dirs=pack_dirs(ys[6]) if emit_dirs else None,
     )
 
 

@@ -3,7 +3,7 @@
 The reference scores every aligned pair of characters with exactly two
 values — ``s_match`` / ``s_mismatch`` (``/root/reference/src/alignment/
 algo.rs:245-248``, ``src/config.rs:6-18``). This module extends the
-framework beyond that (a TPU-framework capability the reference lacks):
+framework beyond that (a capability the reference lacks):
 
 * **Kimura-style DNA scoring** (``Scores.s_transition``): mismatches
   split into *transitions* (purine<->purine A<->G, pyrimidine<->
@@ -16,9 +16,9 @@ framework beyond that (a TPU-framework capability the reference lacks):
   matrix in the standard NCBI format loads from a file. This is what
   protein alignment needs.
 
-TPU-native design note (why the funny encoding): the hot kernels
-compare one fixed per-lane character against a streamed one, every
-cell, on the VPU — a table *gather* per cell is not a VPU operation.
+Design note (why the funny encoding): the wavefront fills compare
+one fixed per-lane character against a streamed one, every cell, as
+elementwise vector code — a table *gather* per cell is not.
 Kimura scoring therefore re-encodes characters **host-side** so the
 class test becomes one XOR:
 

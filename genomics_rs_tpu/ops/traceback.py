@@ -100,8 +100,8 @@ def classify_moves(
     (start_i, start_j) (end of the alignment first), already
     terminated — no stop codes inside. Movement and classification
     replicate ``traceback_host`` exactly (same reference semantics);
-    used by the checkpointed long-pair traceback whose walking happens
-    on device (``ops/traceback_device.py``).
+    used by the sharded aligner, whose walking happens on device
+    (``ops/traceback_device.py``).
     """
     s1 = seq1.sequence.encode("ascii")
     s2 = seq2.sequence.encode("ascii")
@@ -233,118 +233,6 @@ def classify_moves(
     return out
 
 
-def classify_moves_batch(
-    moves: np.ndarray,  # (B, T) move codes, rows padded past counts
-    counts: np.ndarray,  # (B,) moves per pair
-    start_is: np.ndarray,
-    start_js: np.ndarray,
-    scores: np.ndarray,
-    pairs: list[tuple[Sequence, Sequence]],
-) -> list[AlignedSequences]:
-    """:func:`classify_moves` over a whole batch in ONE 2-D pass.
-
-    Bit-identical to per-pair classification (pinned by tests): at
-    protein path lengths the per-pair numpy passes cost ~0.8 ms each
-    in fixed small-array overhead — 0.2 s of a 0.3 s 256-pair batch.
-    Falls back to per-pair classify_moves under DEBUG (the per-move
-    reference trace path).
-    """
-    B, T = moves.shape
-    counts = np.asarray(counts, np.int64)
-    if log.isEnabledFor(logging.DEBUG) or T == 0:
-        return [
-            classify_moves(
-                moves[b, : int(counts[b])],
-                int(start_is[b]),
-                int(start_js[b]),
-                int(scores[b]),
-                a,
-                s,
-            )
-            for b, (a, s) in enumerate(pairs)
-        ]
-    mask = np.arange(T, dtype=np.int64)[None, :] < counts[:, None]
-    codes = np.where(mask, moves, 255).astype(np.uint8)
-    is_sub = codes == DIR_SUB
-    is_ins = codes == DIR_INS
-    is_del = codes == DIR_DEL
-    valid = is_sub | is_ins | is_del
-    if not bool((valid == mask).all()):
-        bad = codes[mask & ~valid][0]
-        raise ValueError(f"Unexpected move code {int(bad)}")
-    di = np.where(is_ins, 0, 1) * mask
-    dj = np.where(is_del, 0, 1) * mask
-    i0 = np.asarray(start_is, np.int64)[:, None]
-    j0 = np.asarray(start_js, np.int64)[:, None]
-    i_at = np.maximum(i0 - np.cumsum(di, axis=1) + di, 0)
-    j_at = np.maximum(j0 - np.cumsum(dj, axis=1) + dj, 0)
-    l1 = np.array([len(a.sequence) for a, _ in pairs], np.int64)
-    l2 = np.array([len(b.sequence) for _, b in pairs], np.int64)
-    L1x = max(int(l1.max()), 1) if B else 1
-    L2x = max(int(l2.max()), 1) if B else 1
-    s1mat = np.full((B, L1x), 0x100, np.int32)
-    s2mat = np.full((B, L2x), 0x100, np.int32)
-    for b, (a, s) in enumerate(pairs):
-        s1mat[b, : l1[b]] = np.frombuffer(
-            a.sequence.encode("ascii"), np.uint8
-        )
-        s2mat[b, : l2[b]] = np.frombuffer(
-            s.sequence.encode("ascii"), np.uint8
-        )
-    c1 = np.take_along_axis(
-        s1mat, np.minimum(i_at, L1x - 1), axis=1
-    )
-    c1 = np.where(i_at < l1[:, None], c1, 0x100)
-    c2 = np.take_along_axis(
-        s2mat, np.minimum(j_at, L2x - 1), axis=1
-    )
-    c2 = np.where(j_at < l2[:, None], c2, 0x100)
-    match = is_sub & (c1 == c2)
-    mismatch = is_sub & ~match & mask
-    prev = np.empty_like(codes)
-    prev[:, 0:1] = 255
-    prev[:, 1:] = codes[:, :-1]
-    ins_open = is_ins & (prev != DIR_INS)
-    del_open = is_del & (prev != DIR_DEL)
-    choice_code = np.zeros((B, T), np.uint8)
-    choice_code[mismatch] = 1
-    choice_code[is_ins & ~ins_open] = 2
-    choice_code[ins_open] = 3
-    choice_code[is_del & ~del_open] = 4
-    choice_code[del_open] = 5
-    n_match = match.sum(axis=1)
-    n_mis = mismatch.sum(axis=1)
-    n_open = ins_open.sum(axis=1) + del_open.sum(axis=1)
-    n_ext = (is_ins & ~ins_open).sum(axis=1) + (
-        is_del & ~del_open
-    ).sum(axis=1)
-    out: list[AlignedSequences] = []
-    for b, (a, s) in enumerate(pairs):
-        c = int(counts[b])
-        out.append(
-            AlignedSequences(
-                s1=a,
-                s2=s,
-                # Materialize choice objects only over the real path
-                # (a full (B, T) object array costs ~50 ms at 256
-                # pairs — mostly padding).
-                alignment=list(
-                    zip(
-                        _CHOICE_ARR[choice_code[b, :c]].tolist(),
-                        i_at[b, :c].tolist(),
-                        j_at[b, :c].tolist(),
-                    )
-                ),
-                score=int(scores[b]),
-                matches=int(n_match[b]),
-                mismatches=int(n_mis[b]),
-                gap_extensions=int(n_ext[b]),
-                opening_gaps=int(n_open[b]),
-            )
-        )
-    return out
-
-
 def traceback_host(
     dirs: np.ndarray,
     start_i: int,
@@ -360,7 +248,7 @@ def traceback_host(
     per-axis checked_sub saturation, break when both axes underflow or
     when (0, 0) is reached after a move, local termination on a stop
     code. Classification (stats, open vs extend, is_match quirks) is
-    shared with the checkpointed path via :func:`classify_moves`.
+    shared with the device walks via :func:`classify_moves`.
     """
     i, j = int(start_i), int(start_j)
     codes: list[int] = []

@@ -1,4 +1,4 @@
-"""On-device traceback walk over a block's direction bitmap.
+"""On-device traceback walk over a block's packed direction bitmap.
 
 At 100 kb+ scale a block's direction bitmap is hundreds of MB — far
 cheaper to chase the 2-bit codes on device (a ``lax.while_loop`` of
@@ -8,10 +8,9 @@ retrace (``/root/reference/src/alignment/algo.rs:339-421``): per-axis
 saturation at 0, break when (0, 0) is reached after a move, local
 termination on a stop code.
 
-:func:`device_walk` is the front door: on a TPU backend it runs the
-Mosaic hardware-loop walker (``ops/traceback_pallas.walk_full``,
-~3x the XLA ``while_loop`` per move); elsewhere it runs
-:func:`walk_block` below.
+The bitmap is the packed layout of ``gotoh_scan.pack_dirs`` (what
+``gotoh_tile.tile_fill(emit_dirs=True)`` emits); :func:`device_walk`
+drives :func:`walk_block` to completion.
 """
 
 from __future__ import annotations
@@ -28,7 +27,7 @@ from genomics_rs_tpu.ops.gotoh_scan import DIR_DEL, DIR_INS, DIR_STOP
 #: dependent walk steps per ``while_loop`` iteration. The walk is a
 #: chain of single-word gathers whose per-move cost is dominated by
 #: the loop-iteration overhead, not the gather itself — unrolling
-#: amortizes that overhead (measured ~2.4 us/move at UNROLL=1).
+#: amortizes that overhead.
 UNROLL = 8
 
 
@@ -44,7 +43,7 @@ def walk_block(
     """Chase codes from tile-local (start_li, start_j) until the path
     terminates or leaves the block upward.
 
-    dirs: PACKED int32 (Kp/16, V) words (gotoh_pallas.TileFillResult):
+    dirs: PACKED int32 (Kp/16, V) words (``gotoh_scan.pack_dirs``):
     the code at tile cell (li, j) is
     ``(dirs[(li+j) // 16, li] >> (2 * ((li+j) % 16))) & 3`` — walking
     the packed form directly keeps the refill bitmap 4x smaller.
@@ -205,33 +204,19 @@ def device_walk(
     start_j,
     i0,
     max_steps: int,
-    interpret: bool = False,
     j0=0,
 ):
     """Chase a packed-dirs block from (start_li, start_j); returns
     ``(codes uint8[count], i_final, j_final, done)``.
 
-    Same movement semantics as :func:`walk_block`; on TPU the chase
-    runs as a Mosaic scalar-core hardware loop with the bitmap left
-    in HBM (see ``ops/traceback_pallas``), everywhere else — including
-    ``interpret`` mode and word counts below the Mosaic kernel's DMA
-    window — as the XLA ``while_loop`` above. ``max_steps`` only sizes
-    the move buffer; both paths keep walking past it by resuming
-    through :func:`resume_walk`.
+    Same movement semantics as :func:`walk_block`, which it calls.
+    ``max_steps`` only sizes the move buffer; the walk keeps going
+    past it by resuming through :func:`resume_walk`.
 
     ``j0 > 0``: the bitmap is a column WINDOW starting at global
     column j0 (``start_j``/``j_final`` window-local); a left exit
     returns done=False with ``j_final == 0`` and ``i_final >= i0``.
     """
-    if jax.default_backend() == "tpu" and not interpret:
-        from genomics_rs_tpu.ops.traceback_pallas import PKW, walk_full
-
-        if dirs.shape[0] >= PKW:
-            return walk_full(
-                dirs, start_li, start_j, i0, max_steps=max_steps,
-                j0=j0,
-            )
-
     import numpy as np
 
     def step(li, j):
@@ -243,7 +228,7 @@ def device_walk(
             max_steps=max_steps,
             j0=np.int32(j0),
         )
-        # Single D2H transfer for the whole tuple (see walk_full).
+        # Single D2H transfer for the whole tuple.
         moves, count, i_f, j_f, done = jax.device_get(out)
         return moves[: int(count)], i_f, j_f, done
 

@@ -1,20 +1,17 @@
-"""All-pairs DP alignment-score matrix on TPU.
+"""All-pairs DP alignment-score matrix.
 
 The DP-scored counterpart of the compare driver's suffix-tree
 similarity (``comparison/driver.py``): every pair (i <= j) of a
 sequence container is globally/locally aligned and the score matrix is
 assembled, lower triangle like the reference's similarity matrix
 (``/root/reference/src/main.rs:263-315``) — at 30 kb genome scale this
-is ~4.9e10 DP cells for the bundled corpus (BASELINE.md), a workload
-the reference cannot touch with DP at all.
+is ~4.9e10 DP cells for a 10-genome corpus, a workload the reference
+cannot touch with DP at all.
 
-Execution strategies (engine-dependent):
-* ``pallas`` (TPU): pairs run back-to-back through the score-only
-  wavefront kernel — one compile per padded length bucket, O(m+n)
-  memory per pair, ~1.2e10 cells/s/chip.
-* ``scan`` + mesh (CPU/tests, multi-chip): fixed-shape pair batches
-  ``vmap``-ed and sharded over the ``data`` axis via
-  ``batch_scores_sharded``.
+Pairs are grouped into power-of-two length buckets; each bucket is one
+fixed-shape batch of score-only fills (O(m+n) memory per pair),
+``vmap``-ed on one device or sharded over the ``data`` axis of a
+multi-device mesh via ``batch_scores_sharded``.
 """
 
 from __future__ import annotations
@@ -29,6 +26,7 @@ import numpy as np
 import jax
 
 from genomics_rs_tpu.config import Scores
+from genomics_rs_tpu.ops.engine import resolve_engine
 from genomics_rs_tpu.parallel.batch import batch_scores_sharded, pad_batch
 from genomics_rs_tpu.parallel.mesh import make_mesh
 from genomics_rs_tpu.sequence import (
@@ -93,24 +91,16 @@ def _score_pairs_bucketed(
     is_local: bool,
     engine: str,
     mesh: jax.sharding.Mesh | None = None,
-    interpret: bool = False,
 ) -> tuple[np.ndarray, float]:
     """Score ``pairs`` in length buckets; returns (scores[k],
     padded_cells dispatched).
 
     With a multi-device ``mesh``, each bucket is sharded over the
-    mesh's data axis and filled per shard by the best traced-length
-    kernel for the bucket's padded size (``mesh_bucket_engine``) — the
-    streamed kernels' host-side probe layout can't trace inside
-    ``shard_map``, so long-pair buckets run the flat diagonal batch
-    kernel per chip instead. Without a mesh (or on one device) the
-    host-level :func:`score_pairs` routing applies, streamed kernels
-    included.
+    mesh's data axis; otherwise it runs as one batch on the default
+    device.
     """
-    from genomics_rs_tpu.parallel.batch import (
-        mesh_bucket_engine,
-        score_pairs,
-    )
+    from genomics_rs_tpu.parallel.batch import score_pairs
+    from genomics_rs_tpu.utils.devcache import device_put_cached
 
     seqs = container.sequences
     out = np.zeros(len(pairs), dtype=np.int64)
@@ -136,81 +126,30 @@ def _score_pairs_bucketed(
         s2b = np.stack([enc(pairs[k][1], Ln, PAD_S2) for k in idxs])
         ms = np.array([lens[pairs[k][0]] for k in idxs], dtype=np.int32)
         ns = np.array([lens[pairs[k][1]] for k in idxs], dtype=np.int32)
-        if mesh is None:
+        if mesh is not None and mesh.devices.size > 1:
+            n_dev = mesh.devices.size
+            (s1p, s2p, mp, np_), _ = pad_batch(
+                (s1b, s2b, ms, ns),
+                len(idxs),
+                n_dev,
+                pad_values=[None, None, 0, 0],
+            )
+            sc = batch_scores_sharded(
+                mesh, s1p, s2p, mp, np_, scores, is_local, engine=engine
+            ).score
+        else:
             # Steady-state callers (msa's score pass, repeated
             # align-matrix jobs) resubmit identical operand stacks:
-            # hand the kernels device-resident copies so the fill
-            # doesn't wait on a re-upload (utils/devcache).
-            from genomics_rs_tpu.utils.devcache import (
-                device_put_cached,
-            )
-
-            s1b, s2b = device_put_cached(s1b), device_put_cached(s2b)
-        if mesh is not None and mesh.devices.size > 1:
-            eng = mesh_bucket_engine(engine, Lm, Ln, is_local)
-            if eng == "pallas":
-                # Long-pair bucket (stream tier): the streamed kernel
-                # needs concrete host lengths, so instead of shard_map
-                # each device gets its own slice + dispatch.
-                from genomics_rs_tpu.parallel.batch import (
-                    device_loop_scores,
-                )
-
-                sc, _, _ = device_loop_scores(
-                    mesh.devices.flat,
-                    s1b,
-                    s2b,
-                    ms,
-                    ns,
-                    scores,
-                    is_local,
-                    engine="stream",
-                    interpret=interpret,
-                )
-            else:
-                n_dev = mesh.devices.size
-                (s1p, s2p, mp, np_), _ = pad_batch(
-                    (s1b, s2b, ms, ns),
-                    len(idxs),
-                    n_dev,
-                    pad_values=[None, None, 0, 0],
-                )
-                sc = batch_scores_sharded(
-                    mesh,
-                    s1p,
-                    s2p,
-                    mp,
-                    np_,
-                    scores,
-                    is_local,
-                    engine=eng,
-                    interpret=interpret,
-                ).score
-        elif engine in (
-            "pallas",
-            "shortread",
-            "segmented",
-            "stream",
-            "stream8",
-            "auto",
-        ):
-            # Host-local scoring (also the multihost driver path: each
-            # process only sees its own devices, so a global-mesh
-            # shard_map output would be non-addressable).
+            # hand the fill device-resident copies (utils/devcache).
             sc, _, _ = score_pairs(
-                s1b,
-                s2b,
+                device_put_cached(s1b),
+                device_put_cached(s2b),
                 ms,
                 ns,
                 scores,
                 is_local,
                 engine=engine,
-                interpret=interpret,
             )
-        else:
-            from genomics_rs_tpu.parallel.batch import batch_scores
-
-            sc = batch_scores(s1b, s2b, ms, ns, scores, is_local).score
         sc = np.asarray(sc)
         for pos, k in enumerate(idxs):
             out[k] = int(sc[pos])
@@ -231,25 +170,16 @@ def allpairs_scores(
     is_local: bool = False,
     engine: str = "auto",
     mesh: jax.sharding.Mesh | None = None,
-    interpret: bool = False,
 ) -> AllPairsResult:
     """Score matrix over all pairs (i <= j), lower-triangle layout.
 
     Single-process multi-device runs shard each length bucket over the
-    local data mesh (per-shard Pallas fills, psum/pmax stat merge);
-    multi-host runs go through ``allpairs_multihost`` instead (pair
-    dealing — each process's devices are not globally addressable).
+    local data mesh (psum/pmax stat merge); multi-host runs go through
+    ``allpairs_multihost`` instead (pair dealing — each process's
+    devices are not globally addressable).
     """
-    if engine == "auto":
-        # Keep "auto" on TPU so score_pairs' per-bucket router still
-        # applies (round 4: resolving to "pallas" here silently pinned
-        # every bucket to the FLAT batch kernel — 3.3e10 cells/s where
-        # the streamed kernel does 7.5e10 on long-pair buckets).
-        engine = "auto" if jax.default_backend() == "tpu" else "scan"
-    if mesh is None and (
-        engine == "scan"
-        or (jax.process_count() == 1 and len(jax.devices()) > 1)
-    ):
+    engine = resolve_engine(engine)
+    if mesh is None and jax.process_count() == 1 and len(jax.devices()) > 1:
         mesh = make_mesh()
 
     names = [s.name for s in container.sequences]
@@ -263,7 +193,7 @@ def allpairs_scores(
 
     t0 = time.perf_counter()
     sc, padded_cells = _score_pairs_bucketed(
-        container, pairs, lens, scores, is_local, engine, mesh, interpret
+        container, pairs, lens, scores, is_local, engine, mesh
     )
     for k, (i, j) in enumerate(pairs):
         matrix[j, i] = int(sc[k])
@@ -300,9 +230,9 @@ def allpairs_matrix_scores(
     """All-pairs scores under a full substitution matrix (protein).
 
     Same result layout as :func:`allpairs_scores`; each length bucket
-    dispatches one batched MXU+wavefront fill
-    (``ops/gotoh_matrix.gotoh_scores_matrix``). TPU-framework
-    extension — the reference has no substitution-matrix support.
+    dispatches one batched matmul + wavefront fill
+    (``ops/gotoh_matrix.gotoh_scores_matrix``). An extension — the
+    reference has no substitution-matrix support.
     """
     from genomics_rs_tpu.ops.gotoh_matrix import gotoh_scores_matrix
     from genomics_rs_tpu.sequence import PAD_S1, PAD_S2
@@ -335,23 +265,9 @@ def allpairs_matrix_scores(
         ms = np.array([lens[i] for i, _ in sub], dtype=np.int32)
         ns = np.array([lens[j] for _, j in sub], dtype=np.int32)
         padded_cells += float(len(sub)) * (Lm + 1.0) * (Ln + 1.0)
-        out3 = None
-        if len(sub) > 1024 and jax.default_backend() == "tpu":
-            # Very large protein buckets: sub-batches scanned inside
-            # ONE dispatch (bounded stream memory, one host round
-            # trip; round 5).
-            from genomics_rs_tpu.ops.gotoh_matrix_stream import (
-                gotoh_scores_matrix_stream_grouped,
-            )
-
-            out3 = gotoh_scores_matrix_stream_grouped(
-                s1b, s2b, ms, ns, matrix, g=g, h=h,
-                is_local=is_local,
-            )
-        if out3 is None:
-            out3 = gotoh_scores_matrix(
-                s1b, s2b, ms, ns, matrix, g=g, h=h, is_local=is_local
-            )
+        out3 = gotoh_scores_matrix(
+            s1b, s2b, ms, ns, matrix, g=g, h=h, is_local=is_local
+        )
         sc = np.asarray(out3[0])
         for (i, j), v in zip(sub, sc):
             out[j, i] = int(v)
@@ -393,9 +309,7 @@ def allpairs_scores_resumable(
     """
     import json
 
-    if engine == "auto":
-        # "auto" stays "auto" on TPU (score_pairs routes per bucket).
-        engine = "auto" if jax.default_backend() == "tpu" else "scan"
+    engine = resolve_engine(engine)
 
     names = [s.name for s in container.sequences]
     num = len(names)
@@ -403,9 +317,7 @@ def allpairs_scores_resumable(
     pairs = [(i, j) for j in range(num) for i in range(num) if i <= j]
     matrix = np.zeros((num, num), dtype=np.int64)
     mesh = None
-    if engine == "scan" or (
-        jax.process_count() == 1 and len(jax.devices()) > 1
-    ):
+    if jax.process_count() == 1 and len(jax.devices()) > 1:
         mesh = make_mesh()
 
     import hashlib

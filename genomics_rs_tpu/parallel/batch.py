@@ -1,15 +1,16 @@
 """Batched + sharded alignment scoring.
 
-TPU-native replacement for the reference's rayon fan-out
+Device replacement for the reference's rayon fan-out
 (``/root/reference/src/main.rs:245-261``): instead of threads mutating
 a shared matrix, fixed-shape *batches* of encoded pairs are scored with
 a ``vmap``-ed wavefront fill, and batches are sharded over the mesh's
 ``data`` axis with ``shard_map``; global statistics are merged with
-``psum``/``pmax`` collectives over ICI rather than shared memory.
+``psum``/``pmax`` collectives rather than shared memory.
 
 Score-only mode (``emit_dirs=False``) keeps per-pair state O(m+n), so
-thousands of ~30 kb pairs batch comfortably in HBM; pairs that need a
-full traceback re-run the single-pair path with the direction bitmap.
+thousands of ~30 kb pairs batch comfortably in device memory; pairs
+that need a full traceback re-run the single-pair path with the
+direction table.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import jax.numpy as jnp
 from jax.sharding import PartitionSpec as P
 
 from genomics_rs_tpu.config import Scores
+from genomics_rs_tpu.ops.engine import resolve_engine
 from genomics_rs_tpu.ops.gotoh_scan import gotoh_fill_scan
 from genomics_rs_tpu.parallel.mesh import DATA_AXIS
 
@@ -75,55 +77,28 @@ def batch_scores(
 def _sharded_scores_fn(
     mesh: jax.sharding.Mesh,
     axis_name: str,
-    engine: str,
     is_local: bool,
-    interpret: bool,
     scores_tuple: tuple,
 ):
     """Build (once per static config) the jitted sharded scorer.
 
-    Rebuilding ``shard_map`` per call re-traces and re-lowers every
-    invocation — prohibitive through a remote-compile path — so the
-    jitted callable is cached on the full static key (the
-    ``longseq._sharded_fn`` pattern). ``scores_tuple`` is static so
-    the per-shard kernels see plain ints (no replicated-operand vma
-    casts needed).
+    Rebuilding ``shard_map`` per call would re-trace and re-lower on
+    every invocation, so the jitted callable is cached on the full
+    static key (the ``longseq._sharded_fn`` pattern). ``scores_tuple``
+    is static so the per-shard fills see plain ints.
     """
     scores = Scores(*scores_tuple)
-    # Pallas *interpret* mode slices varying block operands internally
-    # in ways the vma checker rejects (JAX's error message itself
-    # prescribes check_vma=False); compiled kernels pass the checker —
-    # and under check_vma the pallas out avals must declare the axis.
-    check_vma = not (engine != "scan" and interpret)
-    kernel_vma = (axis_name,) if check_vma else ()
 
     def shard_fn(s1eb, s2eb, ms, ns):
-        if engine == "scan":
-            local = batch_scores(
-                s1eb, s2eb, ms, ns, scores, is_local, vma_axes=(axis_name,)
-            )
-            sc, si, sj = local.score, local.start_i, local.start_j
-        else:
-            sc, si, sj = _kernel_scores(
-                engine,
-                s1eb,
-                s2eb,
-                ms,
-                ns,
-                scores,
-                is_local,
-                interpret,
-                vma_axes=kernel_vma,
-            )
-        cells = jnp.sum(
-            (ms.astype(jnp.float32) + 1) * (ns.astype(jnp.float32) + 1)
+        local = batch_scores(
+            s1eb, s2eb, ms, ns, scores, is_local, vma_axes=(axis_name,)
         )
         return BatchScores(
-            score=sc,
-            start_i=si,
-            start_j=sj,
-            max_score=jax.lax.pmax(jnp.max(sc), axis_name),
-            total_cells=jax.lax.psum(cells, axis_name),
+            score=local.score,
+            start_i=local.start_i,
+            start_j=local.start_j,
+            max_score=jax.lax.pmax(local.max_score, axis_name),
+            total_cells=jax.lax.psum(local.total_cells, axis_name),
         )
 
     return jax.jit(
@@ -143,7 +118,6 @@ def _sharded_scores_fn(
                 max_score=P(),
                 total_cells=P(),
             ),
-            check_vma=check_vma,
         )
     )
 
@@ -157,214 +131,23 @@ def batch_scores_sharded(
     scores: Scores,
     is_local: bool,
     axis_name: str = DATA_AXIS,
-    engine: str = "scan",
-    interpret: bool = False,
+    engine: str = "auto",
 ) -> BatchScores:
     """Shard the batch over ``axis_name`` and merge stats with collectives.
 
     The batch dimension must be divisible by the mesh axis size (use
     :func:`pad_batch`). Per-pair outputs come back sharded over the
     same axis; ``max_score``/``total_cells`` are replicated via
-    ``pmax``/``psum`` over ICI — the TPU-native version of the
-    reference's shared-memory matrix writes.
-
-    ``engine`` picks the per-shard fill: ``"scan"`` (the oracle) or
-    one of the traced-length Pallas kernels (``"shortread"``,
-    ``"segmented"``, ``"pallas"`` — the flat diagonal batch kernel).
-    The streamed kernels need concrete lengths for host-side probe
-    placement and cannot trace inside ``shard_map``; route long-pair
-    batches to ``"pallas"`` here (see :func:`mesh_bucket_engine`).
+    ``pmax``/``psum`` — the device-side version of the reference's
+    shared-memory matrix writes. ``engine`` is resolved by
+    :func:`~genomics_rs_tpu.ops.engine.resolve_engine`.
     """
-    fn = _sharded_scores_fn(
-        mesh, axis_name, engine, is_local, interpret, scores.as_tuple()
-    )
+    resolve_engine(engine)
+    fn = _sharded_scores_fn(mesh, axis_name, is_local, scores.as_tuple())
     return fn(s1eb, s2eb, ms, ns)
 
 
-def mesh_bucket_engine(engine: str, L1: int, L2: int, is_local: bool) -> str:
-    """Per-shard engine for a sharded bucket of padded length L1 x L2.
-
-    Mirrors :func:`score_pairs`'s auto routing minus the streamed
-    kernels (host-concrete probe layout can't trace inside
-    ``shard_map``): stream tiers fall back to the flat diagonal batch
-    kernel, which still beats the scan oracle by orders of magnitude
-    per chip.
-    """
-    if engine in ("scan",):
-        return "scan"
-    if engine in ("shortread", "segmented"):
-        return engine
-    L = max(L1, L2)
-    if L <= SHORTREAD_MAX_LEN:
-        return "shortread"
-    if L1 <= SEGMENTED_MAX_LEN:
-        return "segmented"
-    return "pallas"
-
-
-def device_loop_scores(
-    devices,
-    s1b,
-    s2b,
-    ms,
-    ns,
-    scores: Scores,
-    is_local: bool,
-    engine: str = "stream",
-    interpret: bool = False,
-):
-    """Score a bucket across local devices by explicit placement.
-
-    The streamed kernels lay out probes from *concrete* host lengths,
-    so they cannot trace inside ``shard_map`` — instead each device
-    gets an equal slice of the batch via ``jax.device_put`` and its
-    own kernel dispatch (XLA dispatches are async, so the K per-device
-    fills overlap; within a bucket every pair has the same padded
-    shape, so equal counts = equal work). The batch is padded to a
-    multiple of the device count so every slice compiles one shape.
-
-    Returns (score, start_i, start_j) numpy arrays of shape (B,).
-    """
-    import numpy as np
-
-    devices = list(devices)
-    B = len(ms)
-    n_dev = min(len(devices), B)
-    # Padding rows replicate pair 0 (NOT zero-length fills: the stream
-    # wrapper's host-side probe layout keys off concrete lengths, and
-    # a degenerate length could demote the whole slice to the flat
-    # fallback). At most n_dev - 1 duplicated pairs, discarded below.
-    (s1p, s2p, mp, np_), Bp = pad_batch(
-        (np.asarray(s1b), np.asarray(s2b), np.asarray(ms), np.asarray(ns)),
-        B,
-        n_dev,
-    )
-    per = Bp // n_dev
-    outs = []
-    for k, d in enumerate(devices[:n_dev]):
-        sl = slice(k * per, (k + 1) * per)
-        outs.append(
-            _kernel_scores(
-                engine,
-                jax.device_put(s1p[sl], d),
-                jax.device_put(s2p[sl], d),
-                mp[sl],
-                np_[sl],
-                scores,
-                is_local,
-                interpret,
-            )
-        )
-    sc = np.concatenate([np.asarray(o[0]) for o in outs])[:B]
-    si = np.concatenate([np.asarray(o[1]) for o in outs])[:B]
-    sj = np.concatenate([np.asarray(o[2]) for o in outs])[:B]
-    return sc, si, sj
-
-
-#: Below this padded length the row-scan read kernel beats the
-#: diagonal batch kernel (whose flat-diagonal lanes go mostly idle).
-#: Bounded by the shortread kernel's VMEM footprint (~6 row-pane
-#: scratch buffers of L2*4 KiB + in/out blocks): 256 keeps it near
-#: ~11 MiB; 512 would exceed the ~16 MiB core budget.
-SHORTREAD_MAX_LEN = 256
-
-#: Above SHORTREAD_MAX_LEN and up to this padded length the
-#: row-segmented kernel (8 pairs per register pane,
-#: ``ops/gotoh_segmented.py``) beats the flat diagonal kernel — by
-#: 3.9x at 1 kb, 3.0x at 2 kb, 2.4x at 4 kb and still 1.7x at 8 kb
-#: (measured, see the crossover table in that module's docstring).
-SEGMENTED_MAX_LEN = 8192
-
-#: In GLOBAL mode, above this padded length (and within the segmented
-#: band) the row-stacked 8-stream kernel (``ops/gotoh_stream8.py``)
-#: beats the row-segmented kernel: 1.32x at 2 kb, 1.16x at 4 kb,
-#: 1.19x at 8 kb (measured on a v5e chip, batches sized ~2e9 cells).
-#: At/below 1 kb it's a wash (1.04x) and at 512 a loss (0.94x); in
-#: LOCAL mode it loses everywhere (0.67-1.03x — the candidate-mask +
-#: flush machinery adds per-step pane ops), so local stays segmented.
-STREAM8_MIN_LEN = 1024
-
-
-def _kernel_scores(
-    engine,
-    s1b,
-    s2b,
-    ms,
-    ns,
-    scores: Scores,
-    is_local: bool,
-    interpret: bool,
-    vma_axes: tuple[str, ...] = (),
-):
-    """Dispatch one named engine. Traceable for the traced-length
-    kernels (shortread/segmented/pallas); stream/stream8 need concrete
-    ``ms``/``ns`` (host-level probe placement). ``vma_axes`` declares
-    the mesh axes the pallas outputs vary over when dispatched inside
-    a ``check_vma=True`` ``shard_map`` (traced-length kernels only —
-    the stream kernels never trace inside ``shard_map``)."""
-    if engine == "stream":
-        from genomics_rs_tpu.ops.gotoh_stream import gotoh_scores_stream
-
-        return gotoh_scores_stream(
-            s1b, s2b, ms, ns, scores, is_local, interpret=interpret
-        )
-    if engine == "stream8":
-        from genomics_rs_tpu.ops.gotoh_stream8 import (
-            gotoh_scores_stream8,
-        )
-
-        return gotoh_scores_stream8(
-            s1b, s2b, ms, ns, scores, is_local, interpret=interpret
-        )
-    if engine == "shortread":
-        from genomics_rs_tpu.ops.gotoh_shortread import (
-            gotoh_scores_shortread,
-        )
-
-        return gotoh_scores_shortread(
-            s1b,
-            s2b,
-            ms,
-            ns,
-            scores,
-            is_local,
-            interpret=interpret,
-            vma_axes=vma_axes,
-        )
-    if engine == "segmented":
-        from genomics_rs_tpu.ops.gotoh_segmented import (
-            gotoh_scores_segmented,
-        )
-
-        return gotoh_scores_segmented(
-            s1b,
-            s2b,
-            ms,
-            ns,
-            scores,
-            is_local,
-            interpret=interpret,
-            vma_axes=vma_axes,
-        )
-    if engine == "pallas":
-        from genomics_rs_tpu.ops.gotoh_pallas import (
-            gotoh_scores_pallas_batch,
-        )
-
-        return gotoh_scores_pallas_batch(
-            s1b,
-            s2b,
-            ms,
-            ns,
-            scores,
-            is_local,
-            interpret=interpret,
-            vma_axes=vma_axes,
-        )
-    if engine == "scan":
-        out = batch_scores(s1b, s2b, ms, ns, scores, is_local)
-        return out.score, out.start_i, out.start_j
-    raise ValueError(f"unknown engine {engine!r}")
+_batch_scores_jit = jax.jit(batch_scores, static_argnames=("is_local",))
 
 
 def score_pairs(
@@ -375,44 +158,15 @@ def score_pairs(
     scores: Scores,
     is_local: bool = False,
     engine: str = "auto",
-    interpret: bool = False,
 ):
-    """Score a batch of encoded pairs, picking the best kernel.
-
-    engine: "auto" (TPU: shortread for read-scale pairs, row-segmented
-    for the mid-length band — with the row-stacked 8-stream kernel
-    taking the global-mode upper half of that band, see
-    STREAM8_MIN_LEN — the streamed multi-segment kernel for long-pair
-    batches — measured ~1.8x the flat kernel on the 55-pair corpus,
-    global and local — and the flat diagonal batch kernel otherwise;
-    CPU: vmap scan), or one of "shortread", "segmented", "stream8",
-    "stream", "pallas", "scan".
+    """Score a batch of encoded pairs on one device with the engine
+    :func:`~genomics_rs_tpu.ops.engine.resolve_engine` picks.
 
     Returns (score, start_i, start_j) arrays of shape (B,).
     """
-    L = max(s1b.shape[1], s2b.shape[1])
-    if engine == "auto":
-        if jax.default_backend() == "tpu":
-            if L <= SHORTREAD_MAX_LEN:
-                engine = "shortread"
-            elif s1b.shape[1] <= SEGMENTED_MAX_LEN:
-                if (
-                    not is_local
-                    and s1b.shape[1] > STREAM8_MIN_LEN
-                    and s1b.shape[0] >= 2
-                ):
-                    engine = "stream8"
-                else:
-                    engine = "segmented"
-            elif s1b.shape[0] >= 2:
-                engine = "stream"
-            else:
-                engine = "pallas"
-        else:
-            engine = "scan"
-    return _kernel_scores(
-        engine, s1b, s2b, ms, ns, scores, is_local, interpret
-    )
+    resolve_engine(engine)
+    out = _batch_scores_jit(s1b, s2b, ms, ns, scores, is_local)
+    return out.score, out.start_i, out.start_j
 
 
 def pad_batch(arrs, batch: int, multiple: int, pad_values=None):

@@ -1,17 +1,15 @@
-"""Multi-host execution (DCN): process init + host-sharded all-pairs.
+"""Multi-host execution: process init + host-sharded all-pairs.
 
 The reference's only fan-out is a rayon thread pool on one machine
 (``/root/reference/src/main.rs:245-261``). The multi-host equivalent:
 
 * :func:`init_distributed` — ``jax.distributed.initialize`` driven by
   the standard env (JAX_COORDINATOR_ADDRESS / num_processes /
-  process_id, or auto-detected on Cloud TPU pods). No-op when
-  single-process.
+  process_id). No-op when single-process.
 * :func:`allpairs_multihost` — the pair list is dealt round-robin
-  across processes (pairs are embarrassingly parallel, so DCN only
-  carries the final merge); each host scores its share on its local
-  chips (batched Pallas kernel on TPU, shard_map over local devices
-  otherwise) and results are merged with
+  across processes (pairs are embarrassingly parallel, so the network
+  only carries the final merge); each host scores its share on its
+  local devices and results are merged with
   ``multihost_utils.process_allgather``.
 
 Single-process degrades to the local all-pairs driver, which is what
@@ -104,8 +102,8 @@ snake_deal = balanced_deal
 #: column blocks per seq-shard in the hybrid split's pipeline model:
 #: a k-shard tile pipeline with C column blocks keeps each shard busy
 #: C of (C + k - 1) steps, so C = PIPELINE_BLOCKS*k bounds the bubble
-#: at (k-1)/(C+k-1) < 1/PIPELINE_BLOCKS (~11% at 8). Backed by the
-#: measured per-step constants in the ``seqpar_model`` bench row.
+#: at (k-1)/(C+k-1) < 1/PIPELINE_BLOCKS (~11% at 8). A model only:
+#: it charges no collective or per-step cost.
 PIPELINE_BLOCKS = 8
 
 
@@ -210,21 +208,20 @@ def allpairs_hybrid(
     n_shares: int | None = None,
     is_local: bool = False,
     engine: str = "auto",
-    interpret: bool = False,
 ):
     """All-pairs scores under the HYBRID deal: oversized pairs run
     seq-parallel over device sub-meshes instead of capping one share.
 
     Single-process form (devices stand in for hosts — the same
     ``WorkUnit`` plan drives a multi-host launch, where each group
-    forms its sub-mesh over DCN): plain pairs go through the bucketed
+    forms its sub-mesh across hosts): plain pairs go through the bucketed
     batch engines; each split pair's rows are sharded over a
     ``nparts``-device sub-mesh and filled by the collective tile
     pipeline (``parallel/longseq.sharded_gotoh_score``). Scores are
     bit-identical to the local driver (pinned by tests on the CPU
-    mesh). Round 5 — closes the round-4 gap where ``balanced_deal``
-    dealt whole pairs only and the 155 kb outlier capped 8-host
-    efficiency at 0.62 (``work_balance`` row).
+    mesh). Closes the gap where ``balanced_deal`` dealt whole pairs
+    only and one 155 kb outlier capped the 8-host bottleneck
+    efficiency of the mixed corpus at 0.62 (cost accounting).
     """
     import time
 
@@ -267,7 +264,6 @@ def allpairs_hybrid(
             is_local,
             engine,
             mesh=None,
-            interpret=interpret,
         )
         for k, v in zip(plain, sc):
             i, j = pairs[k]
@@ -293,8 +289,7 @@ def allpairs_hybrid(
             scores,
             is_local=is_local,
             n_blocks=C,
-            engine=("scan" if interpret else "auto"),
-            interpret=interpret,
+            engine=engine,
         )
         matrix[j, i] = int(
             res.best[0] if is_local else res.score
@@ -355,10 +350,6 @@ def allpairs_multihost(
 
     from jax.experimental import multihost_utils
 
-    if engine == "auto":
-        # "auto" stays "auto" on TPU (score_pairs routes per bucket).
-        engine = "auto" if jax.default_backend() == "tpu" else "scan"
-
     names = [s.name for s in container.sequences]
     num = len(names)
     lens = np.array([len(s) for s in container.sequences], dtype=np.int32)
@@ -383,7 +374,7 @@ def allpairs_multihost(
         local_scores[: len(mine)] = sc
         local_pairs[: len(mine)] = mine_idx
 
-    # DCN merge: every host contributes its (pair index, score) share.
+    # Cross-host merge: every host contributes its (pair index, score) share.
     g_scores = multihost_utils.process_allgather(local_scores)
     g_pairs = multihost_utils.process_allgather(local_pairs)
     matrix = np.zeros((num, num), dtype=np.int64)

@@ -2,8 +2,8 @@
 
 The reference's only task parallelism is a rayon thread pool over
 similarity-matrix rows (``/root/reference/src/main.rs:245-261``). The
-TPU-native analog is a ``jax.sharding.Mesh`` with a ``data`` axis for
-pair-level data parallelism (ICI collectives, not shared memory) and a
+device analog is a ``jax.sharding.Mesh`` with a ``data`` axis for
+pair-level data parallelism (collectives, not shared memory) and a
 ``seq`` axis for sequence/wavefront parallelism on long sequences
 (SURVEY §2.2, §5).
 """

@@ -7,7 +7,7 @@ appended, empty lines are skipped, body data before any header is
 dropped with a warning, and multiple files accumulate into one
 container.
 
-On top of that the container provides TPU-side encoding: sequences are
+On top of that the container provides device-side encoding: sequences are
 turned into uint8 ASCII arrays padded to a lane-friendly multiple, with
 lengths carried separately (static shapes + masking is the XLA-friendly
 way to handle ragged genomic data).
@@ -53,7 +53,7 @@ class Sequence:
     def reverse_complement(self) -> "Sequence":
         """Reverse-complemented copy (IUPAC map, quality reversed).
 
-        TPU-framework extension for read mapping: reads align against
+        Extension for read mapping: reads align against
         both strands and the better orientation wins. The reference's
         only nod to direction is the dead ``reverse_sequences`` flag
         (``sequence.rs:102-115``), which reverses indices, not bases.
@@ -115,7 +115,7 @@ class SequenceContainer:
     def from_fastq(self, filepath: str) -> "SequenceContainer":
         """Append all reads from a FASTQ file (strict 4-line records).
 
-        TPU-framework extension (the reference is FASTA-only,
+        Extension (the reference is FASTA-only,
         ``sequence.rs:45-95``): real read sets arrive as FASTQ. Records
         are ``@name`` / bases / ``+[name]`` / qualities; blank lines
         between records are tolerated, multi-line sequences are not

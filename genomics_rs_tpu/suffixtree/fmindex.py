@@ -14,7 +14,7 @@ This module closes the loop — the BWT becomes a queryable index:
   device: patterns are right-aligned into one (B, Lp) int32 buffer so
   every search starts at the same column, and a single
   ``jax.lax.scan`` over columns advances all B (lo, hi) ranges with
-  two flat gathers from the HBM-resident Occ table per step;
+  two flat gathers from the device-resident Occ table per step;
 * **locate** reads positions straight out of the retained suffix
   array (it is a build byproduct here, so no SA sampling / LF walking
   is needed — memory is 4 bytes/char, fine at chromosome scale).

@@ -300,7 +300,7 @@ def similarity_native(
 def gotoh_score_cpu(
     s1: bytes, s2: bytes, sm: int, sx: int, g: int, h: int, is_local: bool
 ) -> tuple[int, int, int]:
-    """Reference-equivalent CPU Gotoh score (bench baseline + oracle)."""
+    """Reference-equivalent CPU Gotoh score (the large-scale oracle)."""
     lib = _load_library()
     if lib is None:
         raise RuntimeError("native library unavailable")

@@ -2,7 +2,7 @@
 
 The reference instruments with ad-hoc ``std::time::Instant`` spans
 (``/root/reference/src/alignment/algo.rs:188,270-277``,
-``tree.rs:103-132``, ``main.rs:250-326``). The TPU equivalents here:
+``tree.rs:103-132``, ``main.rs:250-326``). The equivalents here:
 
 * :class:`PhaseTimer` — nested wall-clock spans with cell/throughput
   annotations, logged in the reference's "Time taken to ..." style;

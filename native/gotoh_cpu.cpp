@@ -7,12 +7,10 @@
 // is the *last* row-major argmax (algo.rs:311-322).
 //
 // Dual purpose:
-//  * the honest CPU baseline for bench.py (the Rust toolchain is not
-//    available in this image, so this is the measured stand-in for the
-//    reference's single-threaded fill — same algorithm, same i64 math,
-//    -O3 -march=native);
-//  * a large-scale correctness oracle for the Pallas kernel (scores at
-//    30 kb+ where the lax.scan oracle is impractical).
+//  * a CPU stand-in for the reference's single-threaded fill (same
+//    algorithm, same i64 math);
+//  * a large-scale correctness oracle for the device fills (scores at
+//    30 kb+, where the numpy oracle is impractical).
 //
 // Build: make -C native
 
@@ -102,7 +100,7 @@ int gotoh_score_cpu(const uint8_t* s1, int64_t m, const uint8_t* s2,
 
 // Substitution-matrix variant: sub(a, b) = lut256[a * 256 + b]
 // (covers kimura transition scoring and full matrices, e.g. BLOSUM62;
-// TPU-framework extension over the reference's two-score model).
+// an extension over the reference's two-score model).
 int gotoh_score_cpu_subst(const uint8_t* s1, int64_t m, const uint8_t* s2,
                           int64_t n, const int32_t* lut256, int64_t g,
                           int64_t h, int is_local, int64_t* out) {

@@ -3,7 +3,7 @@
 // side of the FM-index build.
 //
 // Why native: the device prefix-doubling SA (ops/bwt_device.py) is
-// the right TPU story for the BWT *golden* (log2(n) lax.sort rounds),
+// the right device story for the BWT *golden* (log2(n) lax.sort rounds),
 // but as the build path of a search index it is ~2 orders of
 // magnitude off a linear-time host construction at chromosome scale
 // (round-3 verdict item 5). Suffix sorting is pointer-heavy,

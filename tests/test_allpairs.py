@@ -155,20 +155,18 @@ def test_resumable_invalidates_on_content_change(tmp_path):
     np.testing.assert_array_equal(r.matrix, full.matrix)
 
 
-def test_allpairs_sharded_pallas_engines_match_scan():
+def test_allpairs_sharded_matches_single_device():
     """Single-process multi-device all-pairs: buckets sharded over the
-    8-device CPU mesh with per-shard Pallas fills (interpret mode
-    stands in for the chip) must reproduce the scan matrix. Mixed
-    lengths force two buckets — one short-read-kernel bucket and one
-    row-segmented bucket (``mesh_bucket_engine`` routing)."""
-    import pytest
+    8-device CPU mesh must reproduce the one-device matrix. Mixed
+    lengths force two buckets, each padded to a device multiple."""
+    from genomics_rs_tpu.parallel.mesh import make_mesh
 
     rng = np.random.default_rng(41)
     seqs = [
         Sequence(
             f"s{k}",
             "".join(
-                rng.choice(list("ACGT"), int(rng.integers(40, 200)))
+                rng.choice(list("ACGT"), int(rng.integers(40, 120)))
             ),
         )
         for k in range(5)
@@ -176,60 +174,53 @@ def test_allpairs_sharded_pallas_engines_match_scan():
         Sequence(
             f"m{k}",
             "".join(
-                rng.choice(list("ACGT"), int(rng.integers(280, 380)))
+                rng.choice(list("ACGT"), int(rng.integers(140, 250)))
             ),
         )
         for k in range(2)
     ]
     container = SequenceContainer(sequences=seqs)
-    want = allpairs_scores(container, SCORES, is_local=False, engine="scan")
-    got = allpairs_scores(
-        container,
-        SCORES,
-        is_local=False,
-        engine="pallas",
-        interpret=True,
-    )
-    if not np.array_equal(got.matrix, want.matrix):
-        pytest.fail(
-            f"sharded pallas matrix != scan:\n{got.matrix}\n{want.matrix}"
+    for is_local in (False, True):
+        one = allpairs_scores(
+            container, SCORES, is_local=is_local, mesh=make_mesh(1)
         )
+        got = allpairs_scores(container, SCORES, is_local=is_local)
+        np.testing.assert_array_equal(got.matrix, one.matrix)
+        assert got.padded_cells >= got.cells
 
 
-def test_mesh_bucket_engine_routing():
+@pytest.mark.parametrize(
+    "lens,want",
+    [
+        ([10, 20], {(128, 128): [0, 1, 2]}),
+        ([128, 129], {(128, 128): [0], (128, 256): [1], (256, 256): [2]}),
+        ([300, 5000], {(512, 512): [0], (512, 8192): [1], (8192, 8192): [2]}),
+        ([1, 1000], {(128, 128): [0], (128, 1024): [1], (1024, 1024): [2]}),
+    ],
+    ids=["one-class", "128-edge", "wide", "tiny-vs-1k"],
+)
+def test_bucketize_pairs(lens, want):
+    from genomics_rs_tpu.parallel.allpairs import bucketize_pairs
+
+    pairs = [(0, 0), (0, 1), (1, 1)]
+    assert bucketize_pairs(pairs, lens) == want
+
+
+@pytest.mark.parametrize("is_local", [False, True])
+def test_score_pairs_matches_sharded(is_local):
+    """One-device vmapped batch == the same batch sharded over the 8
+    CPU devices (10 pairs padded to 16 with zero-length fills), and
+    the merged stats equal host reductions."""
     from genomics_rs_tpu.parallel.batch import (
-        SEGMENTED_MAX_LEN,
-        SHORTREAD_MAX_LEN,
-        mesh_bucket_engine,
+        batch_scores_sharded,
+        pad_batch,
+        score_pairs,
     )
-
-    assert mesh_bucket_engine("scan", 128, 128, False) == "scan"
-    assert mesh_bucket_engine("shortread", 9000, 9000, False) == "shortread"
-    assert mesh_bucket_engine("auto", 128, SHORTREAD_MAX_LEN, False) == (
-        "shortread"
-    )
-    assert mesh_bucket_engine("pallas", 512, 512, False) == "segmented"
-    # stream tiers fall back to the flat batch kernel per shard.
-    assert (
-        mesh_bucket_engine("stream", SEGMENTED_MAX_LEN + 1, 128, False)
-        == "pallas"
-    )
-
-
-def test_device_loop_scores_matches_scan():
-    """Explicit per-device placement (the long-pair stream-tier path):
-    slices dispatched to each of the 8 CPU devices must reproduce the
-    scan scores, including the row-0-replicating batch padding."""
-    import jax
-
-    from genomics_rs_tpu.parallel.batch import (
-        batch_scores,
-        device_loop_scores,
-    )
+    from genomics_rs_tpu.parallel.mesh import make_mesh
     from genomics_rs_tpu.sequence import PAD_S1, PAD_S2
 
     rng = np.random.default_rng(47)
-    B, L = 10, 256
+    B, L = 10, 128
     bases = np.frombuffer(b"ACGT", dtype=np.uint8)
     ms = rng.integers(L // 2, L + 1, B).astype(np.int32)
     ns = rng.integers(L // 2, L + 1, B).astype(np.int32)
@@ -238,59 +229,16 @@ def test_device_loop_scores_matches_scan():
     for i in range(B):
         s1b[i, : ms[i]] = bases[rng.integers(0, 4, ms[i])]
         s2b[i, : ns[i]] = bases[rng.integers(0, 4, ns[i])]
-    for is_local in (False, True):
-        want = batch_scores(s1b, s2b, ms, ns, SCORES, is_local)
-        sc, si, sj = device_loop_scores(
-            jax.devices(),
-            s1b,
-            s2b,
-            ms,
-            ns,
-            SCORES,
-            is_local,
-            engine="stream",
-            interpret=True,
-        )
-        assert np.array_equal(sc, np.asarray(want.score)), is_local
-        if is_local:
-            assert np.array_equal(si, np.asarray(want.start_i))
-            assert np.array_equal(sj, np.asarray(want.start_j))
-
-
-def test_bucketed_long_bucket_routes_device_loop(monkeypatch):
-    """Buckets past the segmented band route to the per-device stream
-    loop when a multi-device mesh is present."""
-    import genomics_rs_tpu.parallel.allpairs as ap
-    import genomics_rs_tpu.parallel.batch as batch
-    from genomics_rs_tpu.parallel.mesh import make_mesh
-
-    called = {}
-
-    def fake_loop(devs, s1b, s2b, ms, ns, scores, is_local, engine="stream",
-                  interpret=False):
-        called["engine"] = engine
-        called["n"] = len(ms)
-        return (
-            np.zeros(len(ms), np.int32),
-            np.zeros(len(ms), np.int32),
-            np.zeros(len(ms), np.int32),
-        )
-
-    monkeypatch.setattr(batch, "device_loop_scores", fake_loop)
-    rng = np.random.default_rng(3)
-    seqs = [
-        Sequence(
-            f"L{k}",
-            "".join(rng.choice(list("ACGT"), 9000)),
-        )
-        for k in range(2)
-    ]
-    container = SequenceContainer(sequences=seqs)
-    lens = np.array([len(s) for s in seqs], np.int32)
-    pairs = [(0, 0), (0, 1), (1, 1)]
-    sc, _ = ap._score_pairs_bucketed(
-        container, pairs, lens, SCORES, False, "pallas",
-        mesh=make_mesh(), interpret=True,
+    sc, si, sj = score_pairs(s1b, s2b, ms, ns, SCORES, is_local)
+    (s1p, s2p, mp, np_), Bp = pad_batch(
+        (s1b, s2b, ms, ns), B, 8, pad_values=[None, None, 0, 0]
     )
-    assert called == {"engine": "stream", "n": 3}
-    assert list(sc) == [0, 0, 0]
+    assert Bp == 16
+    out = batch_scores_sharded(make_mesh(), s1p, s2p, mp, np_, SCORES, is_local)
+    assert np.array_equal(np.asarray(out.score)[:B], np.asarray(sc))
+    assert np.array_equal(np.asarray(out.start_i)[:B], np.asarray(si))
+    assert np.array_equal(np.asarray(out.start_j)[:B], np.asarray(sj))
+    assert int(out.max_score) == int(np.asarray(out.score).max())
+    assert float(out.total_cells) == float(
+        np.sum((mp + 1.0) * (np_ + 1.0))
+    )

@@ -1,5 +1,5 @@
-"""Device suffix-array BWT vs the reference golden BWT files and the
-suffix-tree implementations."""
+"""Device suffix-array BWT vs the reference golden BWT files (when a
+reference checkout is given) and the suffix-tree implementations."""
 
 import numpy as np
 import pytest
@@ -7,11 +7,11 @@ import pytest
 from genomics_rs_tpu.ops.bwt_device import bwt_device, suffix_array
 from genomics_rs_tpu.sequence import SequenceContainer
 
-from conftest import reference_path
+from conftest import data_path, reference_file
 
 
 def _golden_bwt(fname: str) -> str:
-    with open(reference_path("BWTs", fname)) as f:
+    with open(reference_file("BWTs", fname)) as f:
         return f.read().replace("\n", "")
 
 
@@ -43,6 +43,25 @@ def test_suffix_array_matches_numpy():
 )
 def test_bwt_genome_goldens(fasta, golden):
     sc = SequenceContainer()
-    sc.from_fasta(reference_path("test_data", fasta))
+    sc.from_fasta(reference_file("test_data", fasta))
     got = bwt_device(sc.sequences[0].sequence)
     assert got == _golden_bwt(golden)
+
+
+@pytest.mark.parametrize("n,seed", [(29903, 0), (11382, 1), (2000, 2)])
+def test_bwt_seeded_genome_matches_native_tree(n, seed):
+    """Seeded twin of the genome goldens: the device BWT of a random
+    genome of the golden's length equals the C++ suffix tree's BWT
+    (which the goldens pin) and is a permutation of text + '$'."""
+    from collections import Counter
+
+    from genomics_rs_tpu.suffixtree import make_tree
+
+    rng = np.random.default_rng(seed)
+    s = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, n)].tobytes().decode()
+    got = bwt_device(s)
+    assert Counter(got) == Counter(s + "$")
+    tree = make_tree(data_path("alphabets", "dna.txt"), n)
+    tree.insert_string(s, True, True)
+    tree.compute_stats(0)
+    assert got == tree.stats.bwt

@@ -1,4 +1,4 @@
-"""Variant-caller tests (TPU extension: map -> pileup -> call).
+"""Variant-caller tests (extension: map -> pileup -> call).
 
 Synthetic truth: a random reference, perfectly tiled reads with
 planted SNPs/deletions — the caller must recover exactly the planted
@@ -363,6 +363,9 @@ def test_pileup_q_weights_and_gates():
         recs, 4, device=True, min_baseq=13, min_mapq=10
     )
     assert (counts == counts_d).all()
+    # float32 scatter-add: the device sums in an order that varies
+    # from run to run (atomics on the GPU), so weights agree to a few
+    # ulps of float32, not bit for bit; counts are int32 and exact.
     np.testing.assert_allclose(wsum, wsum_d, rtol=1e-6)
 
 

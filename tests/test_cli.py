@@ -11,9 +11,9 @@ import sys
 
 import pytest
 
-from conftest import REPO_ROOT, reference_path
+from conftest import REPO_ROOT, data_path
 
-CONFIG = reference_path("config.toml")
+CONFIG = data_path("config.toml")
 ENV = dict(
     os.environ,
     JAX_PLATFORMS="cpu",
@@ -52,24 +52,24 @@ def test_cli_align_local(small_pair, tmp_path):
     assert "Alignment Score:" in r.stdout
 
 
-def test_cli_align_banded(small_pair, tmp_path):
-    # band >= len(seq2): exact full-DP semantics — same score as the
-    # global scan run above (off-TPU the kernel auto-interprets).
+@pytest.mark.parametrize(
+    "mode,rows,span",
+    [
+        ("global", ["ACGTACGT", "ACGGACGT"], ""),
+        ("local", ["ACGTACGT", "ACGGACGT"], " span=0-8"),
+    ],
+)
+def test_cli_align_output_fasta(small_pair, tmp_path, mode, rows, span):
+    # -o writes the gapped pair; local records carry their span.
+    out = tmp_path / "aln.fasta"
     r = _run(
-        ["align", "-a", "global", "-f", small_pair, "--band", "1024"],
+        ["align", "-a", mode, "-f", small_pair, "-o", str(out)],
         str(tmp_path),
     )
     assert r.returncode == 0, r.stderr
-    assert "Alignment Score: 5" in r.stdout
-
-
-def test_cli_align_banded_rejects_local(small_pair, tmp_path):
-    r = _run(
-        ["align", "-a", "local", "-f", small_pair, "--band", "1024"],
-        str(tmp_path),
-    )
-    assert r.returncode == 2
-    assert "global-only" in r.stderr
+    recs = out.read_text().split(">")[1:]
+    assert [rec.splitlines()[1] for rec in recs] == rows
+    assert recs[0].splitlines()[0].endswith(span)
 
 
 def test_cli_suffixtree_bwt_file(tmp_path):
@@ -79,7 +79,7 @@ def test_cli_suffixtree_bwt_file(tmp_path):
         [
             "suffixtree",
             "-a",
-            reference_path("alphabets", "banana.txt"),
+            data_path("alphabets", "banana.txt"),
             "--stats",
             "-f",
             str(fasta),
@@ -103,7 +103,7 @@ def test_cli_compare(tmp_path):
         [
             "compare",
             "-a",
-            reference_path("alphabets", "dna.txt"),
+            data_path("alphabets", "dna.txt"),
             "-f",
             str(d),
         ],
@@ -250,7 +250,7 @@ def test_cli_suffixtree_graphviz_small(tmp_path):
         [
             "suffixtree",
             "-a",
-            reference_path("alphabets", "banana.txt"),
+            data_path("alphabets", "banana.txt"),
             "--stats",
             "-f",
             str(fasta),
@@ -308,7 +308,7 @@ def test_cli_debug_observability(tmp_path):
             CONFIG,
             "suffixtree",
             "-a",
-            reference_path("alphabets", "banana.txt"),
+            data_path("alphabets", "banana.txt"),
             "--stats",
             "-f",
             str(fasta),

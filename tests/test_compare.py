@@ -16,9 +16,9 @@ from genomics_rs_tpu.comparison.driver import (
     write_similarity_tsv,
 )
 
-from conftest import reference_path
+from conftest import data_path
 
-ALPHA = reference_path("alphabets", "banana.txt")
+ALPHA = data_path("alphabets", "banana.txt")
 
 
 def test_recursive_lcs_pair():
@@ -44,7 +44,7 @@ def test_native_similarity_matches_python():
         pytest.skip("native library unavailable")
 
     rng = np.random.default_rng(29)
-    alpha = reference_path("alphabets", "dna.txt")
+    alpha = data_path("alphabets", "dna.txt")
     for trial in range(6):
         n1 = int(rng.integers(1, 400))
         a = "".join(rng.choice(list("ACGT"), n1))

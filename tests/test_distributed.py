@@ -197,8 +197,7 @@ class TestAllpairsHybrid:
         sc = Scores(s_match=1, s_mismatch=-2, g=-1, h=-5)
         ref = allpairs_scores(cont, sc, is_local=False, engine="scan")
         got = allpairs_hybrid(
-            cont, sc, n_shares=8, is_local=False, engine="scan",
-            interpret=True,
+            cont, sc, n_shares=8, is_local=False, engine="scan"
         )
         np.testing.assert_array_equal(got.matrix, ref.matrix)
 
@@ -224,7 +223,6 @@ class TestAllpairsHybrid:
         sc = Scores(s_match=1, s_mismatch=-2, g=-1, h=-5)
         ref = allpairs_scores(cont, sc, is_local=True, engine="scan")
         got = allpairs_hybrid(
-            cont, sc, n_shares=8, is_local=True, engine="scan",
-            interpret=True,
+            cont, sc, n_shares=8, is_local=True, engine="scan"
         )
         np.testing.assert_array_equal(got.matrix, ref.matrix)

@@ -1,4 +1,4 @@
-"""FM-index tests (TPU extension — the reference only prints the BWT).
+"""FM-index tests (extension — the reference only prints the BWT).
 
 The index must agree with brute force on counts and positions
 (overlapping occurrences), the batch device search must be
@@ -9,7 +9,7 @@ match the suffix-tree DFS BWT goldens.
 import numpy as np
 import pytest
 
-from conftest import reference_path
+from conftest import reference_file
 from genomics_rs_tpu.suffixtree.fmindex import FMIndex
 
 
@@ -83,8 +83,24 @@ def test_covid_kmers():
     """30 kb genome: index counts must match numpy brute force."""
     from genomics_rs_tpu.sequence import SequenceContainer
 
-    path = reference_path("test_data", "Covid_Wuhan.fasta")
+    path = reference_file("test_data", "Covid_Wuhan.fasta")
     seq = SequenceContainer().from_fasta(path).sequences[0].sequence
+    _check_kmer_counts(seq)
+
+
+def test_seeded_genome_kmers():
+    """Seeded twin of ``test_covid_kmers``: a random genome of the
+    same length."""
+    rng = np.random.default_rng(29903)
+    seq = (
+        np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, 29903)]
+        .tobytes()
+        .decode()
+    )
+    _check_kmer_counts(seq)
+
+
+def _check_kmer_counts(seq: str):
     idx = FMIndex.build(seq)
     rng = np.random.default_rng(3)
     pats = []

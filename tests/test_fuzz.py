@@ -15,6 +15,8 @@ from genomics_rs_tpu.ops.gotoh_scan import gotoh_fill_scan
 from genomics_rs_tpu.sequence import PAD_S1, PAD_S2, Sequence
 from tests.test_alignment import _numpy_gotoh_score
 
+from conftest import data_path
+
 LPAD = 64
 
 SCORE_GRID = [
@@ -75,7 +77,7 @@ def test_tree_impls_agree_random_corpora():
     if not native_available():
         pytest.skip("native library not built")
 
-    alpha = "/root/reference/alphabets/dna.txt"
+    alpha = data_path("alphabets", "dna.txt")
     rng = np.random.default_rng(9)
     for trial in range(8):
         k = int(rng.integers(2, 6))
@@ -114,7 +116,7 @@ def test_device_bwt_vs_tree_random():
     from genomics_rs_tpu.ops.bwt_device import bwt_device
     from genomics_rs_tpu.suffixtree.tree import SuffixTree
 
-    alpha = "/root/reference/alphabets/dna.txt"
+    alpha = data_path("alphabets", "dna.txt")
     rng = np.random.default_rng(13)
     for trial in range(5):
         n = int(rng.integers(4, 120))
@@ -163,7 +165,7 @@ def test_walk_batch_vs_host_walker_score_grid(is_local):
     for sc in SCORE_GRID:
         dirs, score, si, sj = fill(s1b, s2b, ms, ns, sc)
         moves, counts, _, _, done = walk_batch(
-            dirs, si, sj, sc, is_local, "diag", 2 * LPAD + 1
+            dirs, si, sj, "diag", 2 * LPAD + 1
         )
         assert bool(np.all(np.asarray(done))), sc.as_tuple()
         aligned, _ = classify_batch(
@@ -188,10 +190,18 @@ def test_walk_batch_vs_host_walker_score_grid(is_local):
 
 @pytest.mark.parametrize("is_local", [False, True])
 def test_align_batch_vs_scan_score_grid(is_local):
-    """The streamed-dirs batched pipeline (fill + walk + classify)
-    across the scoring grid — paths/stats must match the per-pair
-    scan engine at every edge-case parameterization."""
-    from genomics_rs_tpu.models.aligner import PairwiseAligner, align_batch
+    """align_batch across the scoring grid vs the packed-dirs
+    pipeline (scan dirs packed 16 per word, lockstep ``diag16`` walk,
+    whole-batch classification) — paths/stats must match at every
+    edge-case parameterization."""
+    import jax.numpy as jnp
+
+    from genomics_rs_tpu.models.aligner import align_batch
+    from genomics_rs_tpu.ops.gotoh_scan import pack_dirs
+    from genomics_rs_tpu.ops.traceback_batch import (
+        classify_batch,
+        walk_batch,
+    )
 
     rng = np.random.default_rng(61 + int(is_local))
     for sc in SCORE_GRID:
@@ -207,13 +217,27 @@ def test_align_batch_vs_scan_score_grid(is_local):
                     Sequence("b", "".join(rng.choice(list("ACGT"), n))),
                 )
             )
-        got = align_batch(
-            pairs, sc, is_local=is_local, engine="pallas",
-            interpret=True,
+        got = align_batch(pairs, sc, is_local=is_local)
+        fills = [
+            gotoh_fill_scan(
+                _enc(a.sequence, PAD_S1), _enc(b.sequence, PAD_S2),
+                len(a), len(b), sc, is_local,
+            )
+            for a, b in pairs
+        ]
+        si = np.array([int(f.start_i) for f in fills], np.int32)
+        sj = np.array([int(f.start_j) for f in fills], np.int32)
+        moves, counts, _, _, done = walk_batch(
+            jnp.stack([pack_dirs(f.dirs) for f in fills]),
+            si, sj, "diag16", 2 * LPAD + 1,
         )
-        scan = PairwiseAligner(sc, is_local=is_local, engine="scan")
-        for (s1, s2), g in zip(pairs, got):
-            w = scan.align(s1, s2)
+        assert bool(np.all(np.asarray(done))), sc.as_tuple()
+        walked, _ = classify_batch(
+            np.asarray(moves), np.asarray(counts), si, sj,
+            np.array([int(f.score) for f in fills]),
+            [a for a, _ in pairs], [b for _, b in pairs],
+        )
+        for (s1, s2), g, w in zip(pairs, got, walked):
             assert (
                 g.score,
                 g.alignment,

@@ -67,10 +67,10 @@ def test_sharded_matches_oracle(is_local):
 
 
 @pytest.mark.parametrize("is_local", [False, True])
-def test_sharded_pallas_engine_matches_oracle(is_local):
-    """The Pallas tile kernel (emit_bottom + emit_right) driving the
-    ppermute pipeline — interpret mode on the CPU mesh; the compiled
-    path runs on real hardware via ``bench.py --smoke``."""
+def test_sharded_n_blocks_matches_oracle(is_local):
+    """More column blocks than devices (C = 16 on an 8-device ring):
+    the pipeline runs P + C - 1 steps and must still equal the
+    one-shot scan."""
     mesh = make_mesh(8, axis_name=SEQ_AXIS)
     rng = np.random.default_rng(19)
     m, n = 317, 211
@@ -87,8 +87,7 @@ def test_sharded_pallas_engine_matches_oracle(is_local):
         np.int32(n),
         SCORES,
         is_local,
-        engine="pallas",
-        interpret=True,
+        n_blocks=16,
     )
     ref = gotoh_fill_scan(s1e, s2e, np.int32(m), np.int32(n), SCORES, is_local)
     if is_local:
@@ -99,8 +98,8 @@ def test_sharded_pallas_engine_matches_oracle(is_local):
         assert int(got.score) == int(ref.score)
 
 
-@pytest.mark.parametrize("engine", ["scan", "pallas"])
-def test_batched_2d_mesh(engine):
+@pytest.mark.parametrize("is_local", [False, True])
+def test_batched_2d_mesh(is_local):
     """(data=2, seq=4) mesh: batch of pairs, rows sharded per pair."""
     from genomics_rs_tpu.parallel.longseq import batched_sharded_scores
     from genomics_rs_tpu.parallel.mesh import make_mesh_2d
@@ -124,20 +123,19 @@ def test_batched_2d_mesh(engine):
         ms,
         ns,
         SCORES,
-        False,
-        engine=engine,
-        interpret=engine == "pallas",
+        is_local,
     )
     for i in range(B):
         ref = gotoh_fill_scan(
-            s1b[i], s2b[i], ms[i], ns[i], SCORES, False
+            s1b[i], s2b[i], ms[i], ns[i], SCORES, is_local
         )
-        assert int(out.score[i]) == int(ref.score), i
+        got = int(out.best[i][0]) if is_local else int(out.score[i])
+        assert got == int(ref.score), i
 
 
 class TestAlignSharded:
-    """Multi-chip FULL traceback (round 5): path/stats bit-identical
-    to the single-chip aligners on the 8-device CPU mesh."""
+    """Multi-device FULL traceback: path/stats bit-identical to the
+    single-device aligner on the CPU mesh."""
 
     @pytest.mark.parametrize("is_local", [False, True])
     def test_matches_single_chip_aligner(self, is_local):
@@ -150,10 +148,7 @@ class TestAlignSharded:
         for m, n in [(317, 211), (64, 290), (150, 150)]:
             a = Sequence("a", "".join(rng.choice(list("ACGT"), m)))
             b = Sequence("b", "".join(rng.choice(list("ACGT"), n)))
-            got = align_sharded(
-                mesh, a, b, SCORES, is_local=is_local,
-                engine="scan", interpret=True,
-            )
+            got = align_sharded(mesh, a, b, SCORES, is_local=is_local)
             ref = oracle.align(a, b)
             assert got.alignment == ref.alignment, (m, n, is_local)
             assert got.score == ref.score
@@ -165,9 +160,8 @@ class TestAlignSharded:
                 ref.gap_extensions, ref.opening_gaps,
             )
 
-    def test_sub_blocked_backward(self):
-        # Force the window-local sub-forward (shards taller than
-        # sub_rows) and a multi-window walk.
+    def test_tall_shard_backward(self):
+        # 150-row shards, several windows per shard walk.
         from genomics_rs_tpu.models.aligner import PairwiseAligner
         from genomics_rs_tpu.parallel.longseq import align_sharded
 
@@ -176,10 +170,7 @@ class TestAlignSharded:
         m, n = 600, 500
         a = Sequence("a", "".join(rng.choice(list("ACGT"), m)))
         b = Sequence("b", "".join(rng.choice(list("ACGT"), n)))
-        got = align_sharded(
-            mesh, a, b, SCORES, engine="scan", interpret=True,
-            sub_rows=63,
-        )
+        got = align_sharded(mesh, a, b, SCORES)
         ref = PairwiseAligner(SCORES, engine="scan").align(a, b)
         assert got.alignment == ref.alignment
         assert got.score == ref.score
@@ -196,9 +187,7 @@ class TestAlignSharded:
         ins = "".join(rng.choice(list("ACGT"), 400))
         a = Sequence("a", core)
         b = Sequence("b", core[:50] + ins + core[50:])
-        got = align_sharded(
-            mesh, a, b, SCORES, engine="scan", interpret=True
-        )
+        got = align_sharded(mesh, a, b, SCORES)
         ref = PairwiseAligner(SCORES, engine="scan").align(a, b)
         assert got.alignment == ref.alignment
         assert got.score == ref.score

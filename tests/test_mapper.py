@@ -440,3 +440,45 @@ def test_mapq_margin():
         reads, ref, SCORES, k=15, engine="scan", seed_engine="device"
     )
     assert [r.mapq for r in dev] == [r.mapq for r in res]
+
+
+@pytest.mark.parametrize("both_strands", [True, False])
+def test_plan_extensions_is_per_read(both_strands):
+    """Planning a subset of reads gives those reads' windows exactly
+    as planning the whole batch does (what checks that re-derive a
+    read's extension window rely on)."""
+    from genomics_rs_tpu.models.mapper import plan_extensions
+
+    rng = np.random.default_rng(77)
+    ref = Sequence("ref", "".join(rng.choice(list("ACGT"), 6000)))
+    reads = []
+    for k in range(24):
+        p = int(rng.integers(0, 5800))
+        s = ref.sequence[p : p + 120]
+        if k % 2:
+            s = Sequence("x", s).reverse_complement().sequence
+        if k % 5 == 0:
+            s = "".join(rng.choice(list("ACGT"), 120))  # unmappable
+        reads.append(Sequence(f"r{k}", s))
+    index = KmerIndex([ref], 15)
+    kw = dict(stride=7, band=32, max_hits=64, min_seeds=2,
+              both_strands=both_strands)
+    full = plan_extensions(reads, index, **kw)
+    sub_ix = [1, 4, 5, 9, 10, 17, 23]
+    part = plan_extensions([reads[i] for i in sub_ix], index, **kw)
+
+    def windows(plan, ids):
+        out = {}
+        for t, i in enumerate(plan.mapped_ix):
+            out[ids[i]] = (
+                plan.chosen[i].sequence, plan.win_seqs[t].sequence,
+                plan.win_starts[t],
+            )
+        return out
+
+    want = {k: v for k, v in windows(full, list(range(24))).items()
+            if k in sub_ix}
+    assert windows(part, sub_ix) == want
+    assert [part.strands[j] for j in range(len(sub_ix))] == [
+        full.strands[i] for i in sub_ix
+    ]

@@ -1,4 +1,4 @@
-"""Center-star MSA tests (no reference counterpart — TPU extension).
+"""Center-star MSA tests (no reference counterpart — an extension).
 
 Pins the three load-bearing properties of the merge:
   * every row degaps back to its input sequence verbatim;
@@ -152,14 +152,12 @@ def test_msa_cli(tmp_path):
     assert text.count(">") == 3
 
 
-def test_msa_pallas_interpret_matches_scan():
-    """The MSA must be engine-invariant: pallas (interpret) rows ==
-    scan rows (same center, same merge)."""
+def test_msa_auto_engine_matches_scan():
+    """The MSA is engine-invariant: "auto" rows == "scan" rows (same
+    center, same merge)."""
     seqs = ["ACACACTA", "AGCACACA", "ACACAGTA", "CACACTA"]
     ref = _msa(seqs)
-    got = center_star_msa(
-        _container(seqs), SCORES, engine="pallas", interpret=True
-    )
+    got = center_star_msa(_container(seqs), SCORES, engine="auto")
     assert got.rows == ref.rows
     assert got.center_index == ref.center_index
 

@@ -58,7 +58,9 @@ def test_native_tree_matches_python_compare():
 
     from genomics_rs_tpu.comparison.driver import recursive_lcs_similarity
 
-    alpha = "/root/reference/alphabets/dna.txt"
+    from conftest import data_path
+
+    alpha = data_path("alphabets", "dna.txt")
     rng = np.random.default_rng(2)
     a = "".join(rng.choice(list("ACGT"), 300))
     b = "".join(rng.choice(list("ACGT"), 250))

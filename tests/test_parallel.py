@@ -74,25 +74,22 @@ def test_sharded_matches_batch(is_local):
     assert float(out.total_cells) == float(ref.total_cells)
 
 
-@pytest.mark.parametrize("engine", ["segmented", "pallas", "shortread"])
+@pytest.mark.parametrize("L", [128, 512, 1024])
 @pytest.mark.parametrize("is_local", [False, True])
-def test_sharded_compiled_trace_vma(engine, is_local):
-    """The COMPILED per-shard Pallas path must trace under
-    ``check_vma=True`` (jax >= 0.9 requires the pallas out avals to
-    declare their varying manual axes). CPU can't execute compiled
-    Mosaic, but ``eval_shape`` runs the abstract eval where the vma
-    checker fires — this pins the exact failure the hardware smoke
-    gate hit."""
+def test_sharded_compiled_trace_vma(L, is_local):
+    """The per-shard fill must trace under ``check_vma=True`` (the
+    scan carries are pcast to varying over the mesh axis);
+    ``eval_shape`` runs the abstract eval where the vma checker
+    fires, at the padded lengths the all-pairs buckets use."""
     mesh = make_mesh(8)
-    B, L = 8, 512
+    B = 8
     s1eb = np.zeros((B, L), np.uint8)
     s2eb = np.zeros((B, L), np.uint8)
     ms = np.full(B, L - 12, np.int32)
     ns = np.full(B, L - 12, np.int32)
     out = jax.eval_shape(
         lambda a, b, c, d: batch_scores_sharded(
-            mesh, a, b, c, d, SCORES, is_local, engine=engine,
-            interpret=False,
+            mesh, a, b, c, d, SCORES, is_local
         ),
         s1eb,
         s2eb,

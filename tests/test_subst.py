@@ -1,8 +1,9 @@
 """Substitution-scoring extensions: kimura transitions + full matrices.
 
-TPU-framework capability beyond the reference's two-score model
+A capability beyond the reference's two-score model
 (``/root/reference/src/config.rs:6-18``); cross-checked oracle vs
-oracle vs kernels, plus the classic path's invariance.
+oracle vs the batched/tiled/sharded fills, plus the classic path's
+invariance.
 """
 
 from __future__ import annotations
@@ -177,7 +178,8 @@ class TestKimuraOracles:
 
 
 class TestKimuraKernels:
-    """Pallas kernels (interpret mode) vs the scan oracle, kimura."""
+    """The surviving fills (vmapped batch, tiles, packed walks) vs the
+    per-pair scan oracle, kimura."""
 
     def _batch(self, rng, B, lo, hi, Lm, Ln):
         ms = rng.integers(lo, hi + 1, B).astype(np.int32)
@@ -216,15 +218,12 @@ class TestKimuraKernels:
 
     @pytest.mark.parametrize("is_local", [False, True])
     def test_flat_batch_kernel(self, is_local):
-        from genomics_rs_tpu.ops.gotoh_pallas import (
-            gotoh_scores_pallas_batch,
-        )
+        # The vmapped batch (score_pairs) vs per-pair fills.
+        from genomics_rs_tpu.parallel.batch import score_pairs
 
         rng = np.random.default_rng(21)
         s1b, s2b, ms, ns = self._batch(rng, 4, 20, 60, 64, 64)
-        sc, si, sj = gotoh_scores_pallas_batch(
-            s1b, s2b, ms, ns, KIM, is_local, interpret=True
-        )
+        sc, si, sj = score_pairs(s1b, s2b, ms, ns, KIM, is_local)
         want = self._oracle(s1b, s2b, ms, ns, KIM, is_local)
         got = list(
             zip(
@@ -236,46 +235,15 @@ class TestKimuraKernels:
         assert got == want
 
     @pytest.mark.parametrize("is_local", [False, True])
-    def test_stream_kernel(self, is_local):
-        from genomics_rs_tpu.ops.gotoh_stream import _stream_call
-
-        rng = np.random.default_rng(22)
-        B, Lm, Ln = 3, 48, 48
-        s1b, s2b, ms, ns = self._batch(rng, B, 30, 48, Lm, Ln)
-        out = _stream_call(
-            s1b,
-            s2b,
-            ms,
-            ns,
-            KIM,
-            P=B,
-            Lm=Lm,
-            Ln=Ln,
-            is_local=is_local,
-            interpret=True,
-        )
-        want = self._oracle(s1b, s2b, ms, ns, KIM, is_local)
-        if is_local:
-            vs, is_, js = out
-            got = list(
-                zip(
-                    np.asarray(vs).tolist(),
-                    np.asarray(is_).tolist(),
-                    np.asarray(js).tolist(),
-                )
-            )
-            assert got == [(v, i, j) for (v, i, j) in want]
-        else:
-            got = np.asarray(out).tolist()
-            assert got == [v for (v, _, _) in want]
-
-    @pytest.mark.parametrize("is_local", [False, True])
     def test_single_pair_fill_dirs_and_path(self, is_local):
-        # The full single-pair pallas fill (dirs emitted) must agree
-        # with the scan oracle on dirs-relevant outputs: score, start
-        # cell, and the walked path.
-        from genomics_rs_tpu.ops.gotoh_pallas import gotoh_fill_pallas
-        from genomics_rs_tpu.ops.traceback import traceback_host
+        # The packed form of the scan's dirs, chased on device by
+        # walk_block, must give the host walker's path.
+        from genomics_rs_tpu.ops.gotoh_scan import pack_dirs
+        from genomics_rs_tpu.ops.traceback import (
+            classify_moves,
+            traceback_host,
+        )
+        from genomics_rs_tpu.ops.traceback_device import device_walk
 
         rng = np.random.default_rng(23)
         a = "".join(rng.choice(list("ACGT"), 40))
@@ -286,50 +254,77 @@ class TestKimuraKernels:
         ref = gotoh_fill_scan(
             jnp.asarray(s1), jnp.asarray(s2), 40, 37, KIM, is_local
         )
-        got = gotoh_fill_pallas(
-            s1, s2, 40, 37, KIM, is_local, interpret=True
+        want = traceback_host(
+            np.asarray(ref.dirs),
+            int(ref.start_i),
+            int(ref.start_j),
+            int(ref.score),
+            sq1,
+            sq2,
+            is_local,
         )
-        assert int(got.score) == int(ref.score)
-        assert int(got.start_i) == int(ref.start_i)
-        assert int(got.start_j) == int(ref.start_j)
+        codes, i_f, j_f, done = device_walk(
+            pack_dirs(ref.dirs),
+            int(ref.start_i),
+            int(ref.start_j),
+            0,
+            max_steps=32,  # forces several resumes
+        )
+        assert bool(done)
+        got = classify_moves(
+            codes, int(ref.start_i), int(ref.start_j), int(ref.score),
+            sq1, sq2,
+        )
+        assert got.alignment == want.alignment
+        assert got.score == want.score
 
-        def walk(res):
-            return traceback_host(
-                np.asarray(res.dirs),
-                int(res.start_i),
-                int(res.start_j),
-                int(res.score),
-                sq1,
-                sq2,
-                is_local,
-            )
-
-        aln_ref, aln_got = walk(ref), walk(got)
-        assert aln_ref.alignment == aln_got.alignment
-        assert aln_ref.score == aln_got.score
-
-    def test_blocked_kernel_kimura(self):
-        from genomics_rs_tpu.ops.gotoh_pallas import gotoh_scores_blocked
+    @pytest.mark.parametrize("is_local", [False, True])
+    def test_blocked_kernel_kimura(self, is_local):
+        # Two stacked row tiles (the longseq pipeline's unit) carry the
+        # fill exactly: the second tile's (m, n) probe / argmax equal
+        # the one-shot scan's.
+        from genomics_rs_tpu.ops.gotoh_tile import (
+            global_boundary_left,
+            global_boundary_top,
+            tile_fill,
+        )
 
         rng = np.random.default_rng(24)
-        s1b, s2b, ms, ns = self._batch(rng, 3, 40, 64, 64, 64)
-        for is_local in (False, True):
-            sc, si, sj = gotoh_scores_blocked(
-                s1b, s2b, ms, ns, KIM, is_local, R=16, interpret=True
+        a = "".join(rng.choice(list("ACGT"), 32))
+        b = "".join(rng.choice(list("ACGT"), 29))
+        s1 = jnp.asarray(Sequence("a", a).encoded())
+        s2 = jnp.asarray(Sequence("b", b).encoded())
+        R = 16
+        top = global_boundary_top(0, len(b), KIM)
+        best = None
+        for i0 in (0, R):
+            res = tile_fill(
+                s1[i0 : i0 + R],
+                s2,
+                top,
+                global_boundary_left(i0, R, KIM),
+                KIM,
+                is_local,
+                i0,
+                0,
+                len(a),
+                len(b),
             )
-            want = self._oracle(s1b, s2b, ms, ns, KIM, is_local)
-            got = list(
-                zip(
-                    np.asarray(sc).tolist(),
-                    np.asarray(si).tolist(),
-                    np.asarray(sj).tolist(),
-                )
-            )
-            assert got == want
+            top = res.bottom
+            cand = tuple(int(x) for x in res.best)
+            best = cand if best is None or cand > best else best
+        want = self._oracle(
+            np.asarray(s1)[None], np.asarray(s2)[None],
+            [len(a)], [len(b)], KIM, is_local,
+        )[0]
+        if is_local:
+            assert best == want
+        else:
+            assert int(res.at_mn) == want[0]
 
 
 class TestKimuraKernelsWide:
-    """Remaining engines vs the scan oracle with kimura scoring."""
+    """Remaining surfaces vs the scan oracle with kimura scoring."""
 
     def _mk(self, rng, B, lo, hi, Lm, Ln):
         return TestKimuraKernels._batch(None, rng, B, lo, hi, Lm, Ln)
@@ -340,16 +335,18 @@ class TestKimuraKernelsWide:
         )
 
     @pytest.mark.parametrize("is_local", [False, True])
-    def test_segmented(self, is_local):
-        from genomics_rs_tpu.ops.gotoh_segmented import (
-            gotoh_scores_segmented,
-        )
+    @pytest.mark.parametrize(
+        "B,lo,hi,Lm,Ln",
+        [(5, 20, 60, 64, 64), (6, 1, 30, 32, 32), (3, 40, 96, 128, 96)],
+        ids=["mid", "short-edges", "rect"],
+    )
+    def test_batch_shapes(self, is_local, B, lo, hi, Lm, Ln):
+        # Mixed true lengths inside one padded batch, down to 1 base.
+        from genomics_rs_tpu.parallel.batch import score_pairs
 
-        rng = np.random.default_rng(31)
-        s1b, s2b, ms, ns = self._mk(rng, 5, 20, 60, 64, 64)
-        sc, si, sj = gotoh_scores_segmented(
-            s1b, s2b, ms, ns, KIM, is_local, interpret=True
-        )
+        rng = np.random.default_rng(31 + B + lo)
+        s1b, s2b, ms, ns = self._mk(rng, B, lo, hi, Lm, Ln)
+        sc, si, sj = score_pairs(s1b, s2b, ms, ns, KIM, is_local)
         got = list(
             zip(
                 np.asarray(sc).tolist(),
@@ -358,60 +355,6 @@ class TestKimuraKernelsWide:
             )
         )
         assert got == self._want(s1b, s2b, ms, ns, is_local)
-
-    @pytest.mark.parametrize("is_local", [False, True])
-    def test_shortread(self, is_local):
-        from genomics_rs_tpu.ops.gotoh_shortread import (
-            gotoh_scores_shortread,
-        )
-
-        rng = np.random.default_rng(32)
-        s1b, s2b, ms, ns = self._mk(rng, 6, 10, 30, 32, 32)
-        out = gotoh_scores_shortread(
-            s1b, s2b, ms, ns, KIM, is_local, interpret=True
-        )
-        sc, si, sj = out[:3]
-        got = list(
-            zip(
-                np.asarray(sc).tolist(),
-                np.asarray(si).tolist(),
-                np.asarray(sj).tolist(),
-            )
-        )
-        assert got == self._want(s1b, s2b, ms, ns, is_local)
-
-    @pytest.mark.parametrize("is_local", [False, True])
-    def test_stream8(self, is_local):
-        from genomics_rs_tpu.ops.gotoh_stream8 import _stream8_call
-
-        rng = np.random.default_rng(33)
-        B, Lm, Ln = 16, 32, 32
-        s1b, s2b, ms, ns = self._mk(rng, B, 20, 32, Lm, Ln)
-        out = _stream8_call(
-            s1b,
-            s2b,
-            ms,
-            ns,
-            KIM,
-            P=B,
-            Lm=Lm,
-            Ln=Ln,
-            is_local=is_local,
-            interpret=True,
-        )
-        want = self._want(s1b, s2b, ms, ns, is_local)
-        if is_local:
-            vs, is_, js = out
-            got = list(
-                zip(
-                    np.asarray(vs).tolist(),
-                    np.asarray(is_).tolist(),
-                    np.asarray(js).tolist(),
-                )
-            )
-            assert got == want
-        else:
-            assert np.asarray(out).tolist() == [v for v, _, _ in want]
 
     def test_tile_fill(self):
         from genomics_rs_tpu.ops.gotoh_tile import (
@@ -439,41 +382,51 @@ class TestKimuraKernelsWide:
         )
         assert int(res.at_mn) == _scan_score(a, b, KIM, False)
 
-    def test_banded_full_cover(self):
-        # Band >= n: banded == unrestricted global alignment.
-        from genomics_rs_tpu.models.banded import align_banded
-
-        rng = np.random.default_rng(35)
-        a = "".join(rng.choice(list("ACGT"), 200))
-        b = "".join(rng.choice(list("ACGT"), 180))
-        got = align_banded(
-            Sequence("a", a), Sequence("b", b), KIM, band=1024,
-            interpret=True,
+    @pytest.mark.parametrize("is_local", [False, True])
+    def test_tile_dirs_equal_scan_dirs(self, is_local):
+        # A whole-table tile with emit_dirs=True emits exactly the
+        # packed form of the scan's direction table.
+        from genomics_rs_tpu.ops.gotoh_scan import pack_dirs
+        from genomics_rs_tpu.ops.gotoh_tile import (
+            global_boundary_left,
+            global_boundary_top,
+            tile_fill,
         )
-        assert got.score == _scan_score(a, b, KIM, False)
+
+        rng = np.random.default_rng(37)
+        a = "".join(rng.choice(list("ACGT"), 24))
+        b = "".join(rng.choice(list("ACGT"), 20))
+        s1 = jnp.asarray(Sequence("a", a).encoded())
+        s2 = jnp.asarray(Sequence("b", b).encoded())
+        tile = tile_fill(
+            s1, s2,
+            global_boundary_top(0, len(b), KIM),
+            global_boundary_left(0, len(a), KIM),
+            KIM, is_local, 0, 0, len(a), len(b),
+            emit_dirs=True,
+        )
+        full = gotoh_fill_scan(s1, s2, len(a), len(b), KIM, is_local)
+        assert np.array_equal(
+            np.asarray(tile.dirs), np.asarray(pack_dirs(full.dirs))
+        )
 
     def test_aligner_end_to_end_kimura(self):
-        # Public aligner API: kimura vs classic scores differ exactly
-        # when transitions are on an optimal path; stats/path parity
-        # against the scan engine.
+        # Public aligner API: scores equal the numpy tables' and the
+        # path's global stats account for every base.
         from genomics_rs_tpu.models.aligner import PairwiseAligner
 
         rng = np.random.default_rng(36)
         a = "".join(rng.choice(list("ACGT"), 120))
         b = "".join(rng.choice(list("ACGT"), 110))
         for is_local in (False, True):
-            scan = PairwiseAligner(
-                KIM, is_local=is_local, engine="scan"
-            ).align(Sequence("a", a), Sequence("b", b))
-            pal = PairwiseAligner(
-                KIM, is_local=is_local, engine="pallas", interpret=True
-            ).align(Sequence("a", a), Sequence("b", b))
-            assert scan.score == pal.score
-            assert scan.alignment == pal.alignment
-            assert (scan.matches, scan.mismatches) == (
-                pal.matches,
-                pal.mismatches,
+            got = PairwiseAligner(KIM, is_local=is_local).align(
+                Sequence("a", a), Sequence("b", b)
             )
+            assert got.score == _numpy_score(a, b, KIM, is_local)
+            if not is_local:
+                assert got.matches + got.mismatches + (
+                    got.opening_gaps + got.gap_extensions
+                ) == len(got.alignment)
 
 
 class TestSubstMatrix:
@@ -539,7 +492,7 @@ class TestSubstMatrix:
 
 
 class TestKimuraModels:
-    """Batched and checkpointed alignment surfaces under kimura."""
+    """Batched and sharded alignment surfaces under kimura."""
 
     def test_align_batch_parity(self):
         from genomics_rs_tpu.models.aligner import (
@@ -556,10 +509,7 @@ class TestKimuraModels:
             for i in range(3)
         ]
         for is_local in (False, True):
-            got = align_batch(
-                pairs, KIM, is_local=is_local, engine="pallas",
-                interpret=True,
-            )
+            got = align_batch(pairs, KIM, is_local=is_local)
             ref = PairwiseAligner(KIM, is_local=is_local, engine="scan")
             for (s1, s2), aln in zip(pairs, got):
                 want = ref.align(s1, s2)
@@ -567,20 +517,19 @@ class TestKimuraModels:
                 assert aln.alignment == want.alignment
 
     def test_checkpointed_parity(self):
+        # The sharded aligner's windowed refills (packed tile dirs +
+        # device walks) under kimura, on a 4-device CPU mesh.
         from genomics_rs_tpu.models.aligner import PairwiseAligner
-        from genomics_rs_tpu.models.longalign import align_checkpointed
+        from genomics_rs_tpu.parallel.longseq import align_sharded
+        from genomics_rs_tpu.parallel.mesh import SEQ_AXIS, make_mesh
 
         rng = np.random.default_rng(52)
         a = Sequence("a", "".join(rng.choice(list("ACGT"), 300)))
         b = Sequence("b", "".join(rng.choice(list("ACGT"), 280)))
+        mesh = make_mesh(4, axis_name=SEQ_AXIS)
         for is_local in (False, True):
-            got = align_checkpointed(
-                a, b, KIM, is_local=is_local, block_rows=127,
-                interpret=True,
-            )
-            want = PairwiseAligner(KIM, is_local=is_local, engine="scan").align(
-                a, b
-            )
+            got = align_sharded(mesh, a, b, KIM, is_local=is_local)
+            want = PairwiseAligner(KIM, is_local=is_local).align(a, b)
             assert got.score == want.score
             assert got.alignment == want.alignment
 
@@ -669,11 +618,10 @@ class TestKimuraParallel:
 
 
 class TestMatrixEngine:
-    """MXU + sheared-subs wavefront batch engine vs the scan oracle."""
+    """Matmul + sheared-subs wavefront batch engine vs the scan oracle."""
 
-    @pytest.mark.parametrize("engine", ["scan", "pallas"])
     @pytest.mark.parametrize("is_local", [False, True])
-    def test_blosum_batch_vs_scan(self, is_local, engine):
+    def test_blosum_batch_vs_scan(self, is_local):
         from genomics_rs_tpu.ops.gotoh_matrix import gotoh_scores_matrix
 
         m = blosum62()
@@ -703,8 +651,6 @@ class TestMatrixEngine:
             g=-1,
             h=-5,
             is_local=is_local,
-            engine=engine,
-            interpret=engine == "pallas",
         )
         for i in range(B):
             res = _fill_traced(
@@ -722,11 +668,13 @@ class TestMatrixEngine:
                 assert int(sj[i]) == int(res.start_j), i
 
     @pytest.mark.parametrize("is_local", [False, True])
-    def test_pallas_vs_scan_engines_mixed_lengths(self, is_local):
-        # Non-pane-multiple batch (pads to 8) + mixed true lengths.
+    def test_mixed_lengths_vs_lut_scan(self, is_local):
+        # Mixed true lengths (down to 3) and wildcard letters in one
+        # batch vs the per-pair LUT-gather scan.
         from genomics_rs_tpu.ops.gotoh_matrix import gotoh_scores_matrix
 
         m = blosum62()
+        lut = jnp.asarray(m.byte_lut())
         rng = np.random.default_rng(63)
         aa = list("ARNDCQEGHILKMFPSTWYVBZX")
         B, Lm, Ln = 5, 40, 56
@@ -748,15 +696,73 @@ class TestMatrixEngine:
                 for k in ns
             ]
         )
-        kw = dict(g=-2, h=-7, is_local=is_local)
-        a = gotoh_scores_matrix(
-            s1b, s2b, ms, ns, m, engine="scan", **kw
+        sc, si, sj = gotoh_scores_matrix(
+            s1b, s2b, ms, ns, m, g=-2, h=-7, is_local=is_local
         )
-        b = gotoh_scores_matrix(
-            s1b, s2b, ms, ns, m, engine="pallas", interpret=True, **kw
+        gaps = Scores(0, 0, -2, -7)
+        for i in range(B):
+            res = _fill_traced(
+                jnp.asarray(s1b[i]),
+                jnp.asarray(s2b[i]),
+                np.int32(ms[i]),
+                np.int32(ns[i]),
+                gaps,
+                is_local,
+                subst_lut=lut,
+            )
+            got = (int(sc[i]), int(si[i]), int(sj[i]))
+            assert got == (
+                int(res.score), int(res.start_i), int(res.start_j)
+            ), i
+
+    @pytest.mark.parametrize("name", ["BLOSUM62", "dna-kimura"])
+    def test_subst_planes_equal_lut_gather(self, name):
+        # The bf16 one-hot matmul planes (float32 accumulation) hold
+        # exactly the byte-LUT entries: each output has one nonzero
+        # product of small integers.
+        from genomics_rs_tpu.ops.gotoh_matrix import (
+            _alpha_code,
+            _ext_matrix,
+            _sheared_subs,
         )
-        for x, y in zip(a, b):
-            assert np.asarray(x).tolist() == np.asarray(y).tolist()
+
+        m = blosum62() if name == "BLOSUM62" else dna_matrix(KIM)
+        rng = np.random.default_rng(64)
+        letters = list(m.alphabet) + ["J", "a"]
+        B, Lm, Ln = 2, 24, 20
+        s1b = np.stack(
+            [
+                np.frombuffer(
+                    "".join(rng.choice(letters, Lm)).encode(), np.uint8
+                )
+                for _ in range(B)
+            ]
+        )
+        s2b = np.stack(
+            [
+                np.frombuffer(
+                    "".join(rng.choice(letters, Ln)).encode(), np.uint8
+                )
+                for _ in range(B)
+            ]
+        )
+        ext = _ext_matrix(m)
+        sheared = np.asarray(
+            _sheared_subs(
+                jnp.asarray(s1b),
+                jnp.asarray(s2b),
+                jnp.asarray(_alpha_code(m)),
+                jnp.asarray(ext),
+                int(ext.shape[0]),
+            )
+        )
+        lut = m.byte_lut()
+        for b in range(B):
+            for i in range(1, Lm + 1):
+                for j in range(1, Ln + 1):
+                    assert sheared[i + j, b, i] == lut[
+                        s1b[b, i - 1], s2b[b, j - 1]
+                    ], (b, i, j)
 
     def test_unknown_bytes_match_byte_lut(self):
         # Bytes outside the alphabet (here 'J' and '*'-less alphabet
@@ -1053,9 +1059,12 @@ class TestCli:
         assert "WHWHWKL" in r.stdout  # identical rows, no gaps needed
         assert "Substitution matrix: BLOSUM62" in (r.stdout + r.stderr)
 
-    def test_matrix_band_exclusive(self, tmp_path, classic_toml):
+    def test_matrix_align_writes_fasta(self, tmp_path, classic_toml):
+        # align --output writes the gapped pair; removing the gaps
+        # gives back the inputs.
         fa = tmp_path / "pair.fasta"
-        fa.write_text(">a\nACGT\n>b\nACGT\n")
+        fa.write_text(">a\nWHWHWKL\n>b\nWHWKL\n")
+        out = tmp_path / "aln.fasta"
         r = self._run(
             [
                 "align",
@@ -1065,14 +1074,20 @@ class TestCli:
                 str(fa),
                 "--matrix",
                 "BLOSUM62",
-                "--band",
-                "1024",
+                "-o",
+                str(out),
             ],
             tmp_path,
             classic_toml,
         )
-        assert r.returncode == 2
-        assert "mutually exclusive" in r.stderr
+        assert r.returncode == 0, r.stderr
+        recs = out.read_text().split(">")[1:]
+        rows = ["".join(rec.splitlines()[1:]) for rec in recs]
+        assert [row.replace("-", "") for row in rows] == [
+            "WHWHWKL",
+            "WHWKL",
+        ]
+        assert len(rows[0]) == len(rows[1])
 
 
 class TestConfig:

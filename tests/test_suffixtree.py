@@ -2,7 +2,9 @@
 
 Assertion values are ground truth from the reference integration tests
 (``/root/reference/tests/test_suffixtree.rs``); golden BWT files and
-FASTA corpora are read from the read-only reference checkout.
+FASTA corpora are read from a reference checkout when one is given
+(``conftest.reference_file``), and seeded genomes check the two tree
+implementations and the device BWT against each other.
 """
 
 import pytest
@@ -12,7 +14,7 @@ from genomics_rs_tpu.suffixtree import native_available
 from genomics_rs_tpu.suffixtree.native import NativeSuffixTree
 from genomics_rs_tpu.suffixtree.tree import SuffixTree
 
-from conftest import reference_path
+from conftest import data_path, reference_file
 
 _IMPLS = [SuffixTree]
 if native_available():
@@ -26,7 +28,7 @@ def tree_cls(request):
 
 
 def _alpha(name: str) -> str:
-    return reference_path("alphabets", name)
+    return data_path("alphabets", name)
 
 
 def test_tree_simple2(tree_cls):
@@ -61,13 +63,13 @@ def test_tree_simple4(tree_cls):
 
 
 def _golden_bwt(path: str) -> str:
-    with open(reference_path(path.split("/")[0], path.split("/")[1])) as f:
+    with open(reference_file(*path.split("/"))) as f:
         return f.read().replace("\n", "")
 
 
 def _genome_tree(fasta: str, tree_cls):
     sc = SequenceContainer()
-    sc.from_fasta(reference_path("test_data", fasta))
+    sc.from_fasta(reference_file("test_data", fasta))
     tree = tree_cls(_alpha("dna.txt"), 200000)
     tree.insert_string(sc.sequences[0].sequence, True, True)
     tree.compute_stats(0)
@@ -138,7 +140,7 @@ def test_generalized_suffix_tree_equal_sequences(tree_cls):
 
 def test_generalized_suffix_tree_equal_sequences_long(tree_cls):
     sc = SequenceContainer()
-    sc.from_fasta(reference_path("test_data", "Covid_USA-CA4.fasta"))
+    sc.from_fasta(reference_file("test_data", "Covid_USA-CA4.fasta"))
     tree = tree_cls(_alpha("dna.txt"), 200000)
     tree.insert_string(sc.sequences[0].sequence, True, True)
     tree.insert_string(sc.sequences[0].sequence, True, True)
@@ -152,7 +154,7 @@ def test_tree_chr12_native():
     """The reference's disabled-for-speed chr12 test
     (test_suffixtree.rs:239-257) — the C++ core runs it in seconds."""
     sc = SequenceContainer()
-    sc.from_fasta(reference_path("test_data", "chr12.fasta"))
+    sc.from_fasta(reference_file("test_data", "chr12.fasta"))
     s = sc.sequences[0].sequence
     tree = NativeSuffixTree(_alpha("dna.txt"), len(s))
     tree.insert_string(s, True, False)
@@ -180,3 +182,55 @@ def test_string_cap_32(tree_cls):
         tree.insert_string("ACGT", True, False)
     with pytest.raises(ValueError):
         tree.insert_string("ACGT", True, False)
+
+
+def _seeded_genome(n: int, seed: int) -> str:
+    """A genome-like DNA string: random bases plus copied repeats, so
+    the tree has deep internal nodes as real genomes do."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    s = bytearray(np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, n)])
+    for _ in range(max(1, n // 500)):
+        L = int(rng.integers(20, 200))
+        a, b = (int(x) for x in rng.integers(0, n - L, 2))
+        s[b : b + L] = s[a : a + L]
+    return s.decode()
+
+
+@pytest.mark.parametrize("n,seed", [(1000, 1), (4000, 2), (12000, 3)])
+def test_tree_seeded_genome_bwt(tree_cls, n, seed):
+    """Seeded twin of the genome goldens: the tree's BWT equals the
+    device suffix-array BWT, and its leaf count is n + 1."""
+    from genomics_rs_tpu.ops.bwt_device import bwt_device
+
+    s = _seeded_genome(n, seed)
+    tree = tree_cls(_alpha("dna.txt"), n)
+    tree.insert_string(s, True, True)
+    tree.compute_stats(0)
+    assert tree.stats.num_leaves == n + 1
+    assert tree.stats.bwt == bwt_device(s)
+
+
+@pytest.mark.skipif(not native_available(), reason="needs the C++ core")
+@pytest.mark.parametrize("n,seed", [(3000, 4), (9000, 5)])
+def test_tree_seeded_genome_impls_agree(n, seed):
+    """The Python tree and the C++ core give identical statistics on
+    the same seeded genome (the chr12/genome tests' twin)."""
+    s = _seeded_genome(n, seed)
+    stats = []
+    for cls in (SuffixTree, NativeSuffixTree):
+        tree = cls(_alpha("dna.txt"), n)
+        tree.insert_string(s, True, True)
+        tree.compute_stats(0)
+        st = tree.stats
+        stats.append(
+            (
+                st.num_internal,
+                st.num_leaves,
+                st.num_nodes,
+                st.max_string_depth,
+                st.bwt,
+            )
+        )
+    assert stats[0] == stats[1]

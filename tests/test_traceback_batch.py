@@ -3,8 +3,8 @@
 ``ops/traceback_batch.walk_batch`` must chase every read's direction
 codes with exactly the per-pair host walker's semantics (reference
 retrace movement rules, ``algo.rs:339-421``), for both code layouts
-(diag-major scan cells and rows16 packed interior words with
-synthesized boundary codes); ``classify_batch`` must reproduce
+(diag-major scan cells and their diag16 packed words), and so must
+the single-walk ``walk_block``; ``classify_batch`` must reproduce
 ``classify_moves``'s stats/paths/quirks (``algo.rs:351-399``,
 SURVEY §2.4-5) vectorized over the batch.
 """
@@ -54,30 +54,13 @@ def _scan_batch(qs, rs, is_local, align=8):
     return L1, L2, dirs, sc, si, sj
 
 
-def _pack_rows16(dirs_b, L1, L2):
-    """Repack diag-major cells into rows16 words on host (test rig)."""
-    B = dirs_b.shape[0]
-    W = L2 // 16
-    ii = np.arange(1, L1 + 1)[:, None]
-    jj = np.arange(1, L2 + 1)[None, :]
-    rows16 = np.zeros((B, L1, W), np.int64)
-    shifts = (2 * np.arange(16))[None, :]
-    for b in range(B):
-        cell = dirs_b[b][ii + jj, ii].astype(np.int64)  # (L1, L2)
-        for w in range(W):
-            rows16[b, :, w] = (
-                cell[:, w * 16 : (w + 1) * 16] << shifts
-            ).sum(1)
-    return rows16.astype(np.uint32).view(np.int32).reshape(B, L1, W)
-
-
 @pytest.mark.parametrize("is_local", [False, True])
 def test_walk_batch_diag_and_classify_parity(is_local):
     rng = np.random.default_rng(0)
     qs, rs = _random_pairs(rng, 16)
     L1, L2, dirs, sc, si, sj = _scan_batch(qs, rs, is_local)
     moves, counts, i_f, j_f, done = walk_batch(
-        dirs, si, sj, SCORES, is_local, "diag", L1 + L2 + 1
+        dirs, si, sj, "diag", L1 + L2 + 1
     )
     assert bool(np.all(np.asarray(done)))
     aligned, cigs = classify_batch(
@@ -113,21 +96,78 @@ def test_walk_batch_diag_and_classify_parity(is_local):
         assert cigs[b] == cigar(ref), b
 
 
+def _pack_host(cells: np.ndarray) -> np.ndarray:
+    """Independent host packing of diag-major cells (K, Mp) into
+    (ceil(K/16), Mp) int32 words, 16 codes per word, low bits first."""
+    K, Mp = cells.shape
+    Kp = -(-K // 16) * 16
+    c = np.zeros((Kp, Mp), np.int64)
+    c[:K] = cells
+    words = np.zeros((Kp // 16, Mp), np.int64)
+    for t in range(16):
+        words |= c[t::16] << (2 * t)
+    return words.astype(np.uint32).view(np.int32)
+
+
+@pytest.mark.parametrize("K", [1, 15, 16, 17, 33, 129])
+def test_pack_dirs_layout(K):
+    """pack_dirs == the host packing, across word-boundary lengths;
+    every code unpacks back with the walkers' shift-and-mask."""
+    from genomics_rs_tpu.ops.gotoh_scan import pack_dirs
+
+    rng = np.random.default_rng(K)
+    cells = rng.integers(0, 4, (K, 7)).astype(np.uint8)
+    words = np.asarray(pack_dirs(jax.numpy.asarray(cells)))
+    assert np.array_equal(words, _pack_host(cells))
+    k = np.arange(K)[:, None]
+    back = (words[k // 16, np.arange(7)[None, :]] >> (2 * (k % 16))) & 3
+    assert np.array_equal(back, cells)
+
+
 @pytest.mark.parametrize("is_local", [False, True])
-def test_walk_batch_rows16_matches_diag(is_local):
-    # rows16 stores interior cells only; boundary moves (row 0 / col
-    # 0, including the local-mode stop when the boundary max clamps
-    # to zero) are synthesized — must equal the stored-cell walk.
+def test_walk_batch_diag16_matches_diag(is_local):
+    # The packed layout walks exactly like the per-cell layout.
+    from genomics_rs_tpu.ops.gotoh_scan import pack_dirs
+
     rng = np.random.default_rng(1)
     qs, rs = _random_pairs(rng, 16)
     L1, L2, dirs, sc, si, sj = _scan_batch(qs, rs, is_local, align=16)
-    rows16 = _pack_rows16(np.asarray(dirs), L1, L2)
-    ref = walk_batch(dirs, si, sj, SCORES, is_local, "diag", L1 + L2 + 1)
-    got = walk_batch(
-        rows16, si, sj, SCORES, is_local, "rows16", L1 + L2 + 1
-    )
+    packed = jax.vmap(pack_dirs)(dirs)
+    ref = walk_batch(dirs, si, sj, "diag", L1 + L2 + 1)
+    got = walk_batch(packed, si, sj, "diag16", L1 + L2 + 1)
     for name, a, b in zip(("moves", "counts", "i", "j", "done"), ref, got):
         assert np.array_equal(np.asarray(a), np.asarray(b)), name
+
+
+@pytest.mark.parametrize("is_local", [False, True])
+@pytest.mark.parametrize("max_steps", [8, 64])
+def test_walk_block_matches_host_walker(is_local, max_steps):
+    # The single-pair device walk over packed words (resumed when
+    # the move buffer fills) vs traceback_host on the same table.
+    from genomics_rs_tpu.ops.gotoh_scan import pack_dirs
+    from genomics_rs_tpu.ops.traceback import classify_moves
+    from genomics_rs_tpu.ops.traceback_device import device_walk
+
+    rng = np.random.default_rng(4)
+    qs, rs = _random_pairs(rng, 6)
+    L1, L2, dirs, sc, si, sj = _scan_batch(qs, rs, is_local, align=16)
+    for b in range(len(qs)):
+        codes, i_f, j_f, done = device_walk(
+            pack_dirs(dirs[b]), int(si[b]), int(sj[b]), 0,
+            max_steps=max_steps,
+        )
+        assert bool(done), b
+        if not is_local:
+            assert (int(i_f), int(j_f)) == (0, 0), b
+        got = classify_moves(
+            codes, int(si[b]), int(sj[b]), int(sc[b]), qs[b], rs[b]
+        )
+        want = traceback_host(
+            np.asarray(dirs[b]), int(si[b]), int(sj[b]), int(sc[b]),
+            qs[b], rs[b], is_local,
+        )
+        assert got.alignment == want.alignment, b
+        assert got.score == want.score, b
 
 
 def test_classify_batch_no_paths_keeps_stats():
@@ -135,7 +175,7 @@ def test_classify_batch_no_paths_keeps_stats():
     qs, rs = _random_pairs(rng, 6)
     L1, L2, dirs, sc, si, sj = _scan_batch(qs, rs, False)
     moves, counts, *_ = walk_batch(
-        dirs, si, sj, SCORES, False, "diag", L1 + L2 + 1
+        dirs, si, sj, "diag", L1 + L2 + 1
     )
     full, cig_full = classify_batch(
         np.asarray(moves), np.asarray(counts), np.asarray(si),
